@@ -1,6 +1,7 @@
 """Drive the PyTorch port's inference path on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --baseline OLD.cu --baseline-intrinsics fxfycxcy
 
 Builds the port's CUDA kernels from `zebrapose_tpu_torch/csrc/`, holds
 each against its plain PyTorch version, runs the main path (480x640
@@ -10,11 +11,21 @@ and times it. Inputs are made with numpy from fixed seeds. Any failed
 check exits non-zero. Phases:
 
   1. device      the card, its power limit
-  2. build       nvcc of every kernel source (registers / spills)
-  3. kernel      minimal-set EPnP kernel vs its plain version
+  2. build       nvcc of every kernel source (registers / spills),
+                 the kernel's occupancy as the CUDA runtime reports it
+  3. kernel      minimal-set EPnP kernel vs its plain version, on noisy
+                 sets and on edge sets (coincident, collinear,
+                 near-collinear, near-planar; gn_iters 5 and 0)
   4. decode      exact-geometry decode, CUDA (kernel) vs CPU (plain)
   5. main path   make_eval_step at full width, f32 logits vs the CPU
-  6. timing      kernel vs plain vs bound
+  6. timing      kernel (a loop of launches between two CUDA events, and
+                 its device time under torch.profiler) vs plain vs bound
+
+`--baseline OLD.cu` also builds another version of
+`csrc/epnp_minimal.cu` with the same C interface and times it against
+the current one in turns (old, new, new, old) by the same method;
+`--baseline-intrinsics fxfycxcy` says that its third argument is
+[N, 4] (fx, fy, cx, cy) rather than Ks [N, 3, 3].
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -22,6 +33,9 @@ The second-to-last line is the kernels' JSON record, the last line
 
 from __future__ import annotations
 
+import argparse
+import ctypes
+import hashlib
 import json
 import os
 import subprocess
@@ -62,8 +76,8 @@ def orth_err(R):
 
 
 def time_ms(fn, iters=20, warmup=3):
-    """Median per-call device time in ms over `iters` calls, each
-    bracketed by CUDA events, after `warmup` calls."""
+    """Per-call device time in ms over `iters` calls, each bracketed by
+    CUDA events, after `warmup` calls: (median, min, max)."""
     import torch
 
     for _ in range(warmup):
@@ -77,7 +91,56 @@ def time_ms(fn, iters=20, warmup=3):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    return float(np.median(times)), min(times), max(times)
+
+
+def time_launches(fn, launches=100, repeats=5):
+    """ms a launch: one pair of CUDA events around `launches` calls of
+    `fn` on inputs made beforehand, over the count; one figure for each
+    of `repeats` runs, after a warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / launches)
+    return out
+
+
+def profiled_ms(fn, name, launches=20):
+    """Mean device time in ms of the CUDA kernels whose name holds
+    `name`, under torch.profiler over `launches` calls; None when the
+    profiler sees no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and name in e.key]
+    if not ev or not sum(e.count for e in ev):
+        return None
+    return (sum(e.self_device_time_total for e in ev)
+            / sum(e.count for e in ev) / 1e3)
+
+
+def stats(xs):
+    return {"median": float(np.median(xs)), "min": float(min(xs)),
+            "max": float(max(xs))}
 
 
 def epnp_operations(gn_iters: int) -> int:
@@ -100,20 +163,85 @@ def epnp_operations(gn_iters: int) -> int:
     return control + mtm + subspace + l6x10 + cases + gn + pose + reproj
 
 
-def minimal_sets(n, noise, rng):
-    """Noisy 6-point sets under random poses (LM-O intrinsics)."""
-    pw = rng.uniform(-40, 40, (n, 6, 3)).astype(np.float32)
+def random_poses(n, rng):
     R0 = np.stack([np.linalg.qr(rng.normal(size=(3, 3)))[0]
                    for _ in range(n)])
     R0[np.linalg.det(R0) < 0] *= -1
     t0 = np.concatenate([rng.uniform(-30, 30, (n, 2)),
                          rng.uniform(450, 650, (n, 1))], -1)
+    return R0, t0
+
+
+def project(pw, R0, t0):
+    """Pixels of model points pw [n, 6, 3] under (R0, t0), LM-O K."""
     pc = np.einsum("nij,npj->npi", R0, pw) + t0[:, None, :]
-    uv = np.stack([K_LMO[0, 0] * pc[..., 0] / pc[..., 2] + K_LMO[0, 2],
-                   K_LMO[1, 1] * pc[..., 1] / pc[..., 2] + K_LMO[1, 2]],
-                  -1).astype(np.float32)
+    return np.stack([K_LMO[0, 0] * pc[..., 0] / pc[..., 2] + K_LMO[0, 2],
+                     K_LMO[1, 1] * pc[..., 1] / pc[..., 2] + K_LMO[1, 2]],
+                    -1).astype(np.float32)
+
+
+def minimal_sets(n, noise, rng):
+    """Noisy 6-point sets under random poses (LM-O intrinsics)."""
+    pw = rng.uniform(-40, 40, (n, 6, 3)).astype(np.float32)
+    R0, t0 = random_poses(n, rng)
+    uv = project(pw, R0, t0)
     uv += rng.normal(0, noise, uv.shape).astype(np.float32)
     return pw, uv, R0
+
+
+EDGE_KINDS = ("coincident", "collinear", "near_collinear", "near_planar")
+
+
+def edge_sets(kind, n, rng):
+    """Degenerate and near-degenerate 6-point sets, the cases a split of
+    one solve over several threads could break: six copies of one point
+    (integer coordinates, so that their mean is the point whatever the
+    order of summation, and the spread exactly 0; pixels drawn at
+    random), six points on a line, a line with 5 mm of scatter, a plane
+    with 0.5 mm of scatter (exact projections under random poses, LM-O
+    intrinsics)."""
+    if kind == "coincident":
+        pw = np.repeat(rng.integers(-40, 41, (n, 1, 3)), 6, axis=1)
+        return (pw.astype(np.float32),
+                rng.uniform(200, 300, (n, 6, 2)).astype(np.float32))
+    if kind in ("collinear", "near_collinear"):
+        d = rng.normal(size=(n, 1, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        pw = rng.uniform(-40, 40, (n, 1, 3)) + rng.uniform(-40, 40,
+                                                           (n, 6, 1)) * d
+        if kind == "near_collinear":
+            pw = pw + rng.normal(0, 5.0, pw.shape)
+    elif kind == "near_planar":
+        pw = rng.uniform(-40, 40, (n, 6, 3))
+        pw[..., 2] = rng.normal(0, 0.5, (n, 6))
+    else:
+        raise ValueError(kind)
+    pw = pw.astype(np.float32)
+    return pw, project(pw, *random_poses(n, rng))
+
+
+def case_errors(samp3d, samp2d, Ks, gn_iters):
+    """The plain version's reprojection error of each of the three beta
+    cases [n, 3] (NaN -> +inf), the errors its choice compares."""
+    import torch
+
+    from zebrapose_tpu_torch.ops import pnp
+    from zebrapose_tpu_torch.ops.fast_linalg import smallest_subspace
+
+    w = torch.ones(samp3d.shape[:2], dtype=samp3d.dtype,
+                   device=samp3d.device)
+    ctrl_w, alphas = pnp._control_points(samp3d, w)
+    V = smallest_subspace(pnp._build_mtm(alphas, samp2d, w, Ks), k=4)
+    L, rho = pnp._l6x10_and_rho(V, ctrl_w)
+    betas = torch.stack([pnp._betas_case1(L, rho), pnp._betas_case2(L, rho),
+                         pnp._betas_case3(L, rho)], dim=-2)
+    betas = pnp._gauss_newton_betas(L[:, None], rho[:, None], betas,
+                                    gn_iters)
+    Rs, ts = pnp._pose_from_betas(betas, V[:, None], alphas[:, None],
+                                  samp3d[:, None], w[:, None])
+    err = ((pnp.project_points(samp3d[:, None], Rs, ts, Ks[:, None])
+            - samp2d[:, None]) ** 2).sum(-1).mean(-1)
+    return torch.where(torch.isnan(err), torch.inf, err), Rs, ts
 
 
 def relief_scene(rng, B=8, G=64, bits=16):
@@ -177,7 +305,36 @@ def sphere_frames(B, rng):
     return frames, np.array(bboxes)
 
 
-def main() -> int:
+def build_baseline(path):
+    """Compile another version of csrc/epnp_minimal.cu with the port's
+    flags into the build directory; its zp_epnp_minimal entry point."""
+    from zebrapose_tpu_torch.ops import _build
+
+    src = os.path.abspath(path)
+    digest = hashlib.sha256(open(src, "rb").read()
+                            + " ".join(_build.NVCC_FLAGS).encode())
+    out = _build.BUILD_DIR / f"libbaseline_{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                              str(out), src], capture_output=True, text=True)
+        check(res.returncode == 0, "baseline build failed:\n" + res.stdout
+              + res.stderr)
+    fn = ctypes.CDLL(str(out)).zp_epnp_minimal
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", help="another version of "
+                    "csrc/epnp_minimal.cu to time against the current one")
+    ap.add_argument("--baseline-intrinsics", choices=("K", "fxfycxcy"),
+                    default="K", help="the baseline's third argument: Ks "
+                    "[N, 3, 3] or [N, 4] (fx, fy, cx, cy)")
+    opts = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -196,8 +353,10 @@ def main() -> int:
         subset_pad_len,
     )
     from zebrapose_tpu_torch.ops.pnp_kernel import (
+        _lib,
         minimal_epnp_hypotheses,
         minimal_epnp_hypotheses_reference,
+        occupancy,
     )
     from zebrapose_tpu_torch.ops.roi import (
         final_bbox,
@@ -227,6 +386,13 @@ def main() -> int:
             .splitlines() if "registers" in ln or "spill" in ln]
     for ln in regs:
         log(f"[build]   {ln}")
+    occ = occupancy()
+    log(f"[build] epnp_minimal_kernel: {occ['registers']} registers, "
+        f"{occ['local_bytes']} B local, {occ['smem_per_block']} B shared "
+        f"memory and {occ['threads_per_block']} threads (32 solves, 4 "
+        f"threads each) a block, {occ['blocks_per_sm']} blocks "
+        f"({32 * occ['blocks_per_sm']} solves) resident per SM")
+    baseline = (build_baseline(opts.baseline) if opts.baseline else None)
 
     # ---- 3. kernel vs plain version on minimal sets --------------------
     rng = np.random.default_rng(5)
@@ -254,6 +420,63 @@ def main() -> int:
             med = float(np.median(rot_deg(Rk, R0)))
             log(f"[kernel]   vs ground truth: median {med:.2e} deg")
             check(med < 0.05, "kernel misses exact minimal sets")
+
+    # edge sets. Two f32 op orders of this algorithm (the JAX reference
+    # and the plain version) part on most collinear sets and on the
+    # ill-conditioned tail of the near-degenerate ones, so agreement is
+    # held where the data determine it: R = 0 on coincident sets, the p99
+    # gates on near-planar sets with Gauss-Newton, medians elsewhere. On
+    # every set a finite non-zero R is orthonormal. Gauss-Newton on a
+    # coincident set's R = 0 turns a few percent of them to NaN, more or
+    # fewer with the op order; on the other sets the kernel makes no more
+    # NaN poses than the plain version (+1% of the sets).
+    erng = np.random.default_rng(11)
+    for kind in EDGE_KINDS:
+        for gn in (5, 0):
+            n = 4096
+            pw, uv = edge_sets(kind, n, erng)
+            a = torch.from_numpy(pw).to(dev)
+            b = torch.from_numpy(uv).to(dev)
+            Ks = torch.from_numpy(np.tile(K_LMO[None], (n, 1, 1))).to(dev)
+            Rk, tk = minimal_epnp_hypotheses(a, b, Ks, gn)
+            torch.cuda.synchronize()
+            Rp, tp = minimal_epnp_hypotheses_reference(a, b, Ks, gn)
+            what = f"[edge] {kind} gn_iters={gn}"
+            if kind == "coincident":
+                err = case_errors(a, b, Ks, gn)[0].cpu().numpy()
+                least = err.min(1, keepdims=True)
+                ties = int((((err == least).sum(1) >= 2)
+                            & np.isfinite(least[:, 0])).sum())
+            Rk, tk, Rp, tp = (x.cpu().numpy() for x in (Rk, tk, Rp, tp))
+            nan_k = int((~np.isfinite(Rk).all((1, 2))).sum())
+            nan_p = int((~np.isfinite(Rp).all((1, 2))).sum())
+            fin = np.isfinite(Rk).all((1, 2)) & np.isfinite(Rp).all((1, 2))
+            zero = (Rk == 0).all((1, 2))
+            ang = rot_deg(Rk[fin], Rp[fin])
+            dt = np.linalg.norm(tk[fin] - tp[fin], axis=-1)
+            good = np.isfinite(Rk).all((1, 2)) & ~zero
+            log(f"{what}: rot deg p50 {np.median(ang):.2e} p99 "
+                f"{np.percentile(ang, 99):.2e} | t mm p50 {np.median(dt):.2e}"
+                f" p99 {np.percentile(dt, 99):.2e} | NaN R {nan_k}/{nan_p} "
+                f"(kernel/plain), R = 0 {int(zero.sum())}, orth "
+                f"{orth_err(Rk[good]):.1e}"
+                + (f", sets whose least error two cases share {ties}"
+                   if kind == "coincident" else ""))
+            check(orth_err(Rk[good]) < 1e-4, f"{what}: R not orthonormal")
+            if kind == "coincident":
+                check(((Rk == 0) | np.isnan(Rk)).all()
+                      and ((Rp == 0) | np.isnan(Rp)).all()
+                      and zero.sum() >= 0.75 * n
+                      and (Rp == 0).all((1, 2)).sum() >= 0.75 * n,
+                      f"{what}: R not exactly 0")
+            else:
+                check(nan_k <= nan_p + n // 100, f"{what}: NaN poses")
+            if kind == "near_planar" and gn == 5:
+                check(np.percentile(ang, 99) < 0.1
+                      and np.percentile(dt, 99) < 0.5, f"{what}: p99")
+            elif kind in ("near_collinear", "near_planar"):
+                check(np.median(ang) < 0.25 and np.median(dt) < 2.5,
+                      f"{what}: median")
 
     # ---- 4. exact-geometry decode: CUDA (kernel) vs CPU (plain) --------
     masks, codes, lut_pts, lut_valid, bboxes, R_gt = relief_scene(rng)
@@ -386,11 +609,13 @@ def main() -> int:
 
     rates = {}
     for bsz in (32, 256):
-        ms = time_ms(lambda: step(*feeds[bsz], generator=gen), iters=10,
-                     warmup=2)
-        rates[bsz] = bsz / (ms / 1e3)
-        log(f"[main] b{bsz}: {ms:.2f} ms/batch, {rates[bsz]:.1f} crops/s "
-            f"(CUDA events, median of 10) on {card}")
+        ms, lo, hi = time_ms(lambda: step(*feeds[bsz], generator=gen),
+                             iters=10, warmup=2)
+        rates[bsz] = {"median": bsz / (ms / 1e3), "min": bsz / (hi / 1e3),
+                      "max": bsz / (lo / 1e3)}
+        log(f"[main] b{bsz}: {ms:.2f} ms/batch (min {lo:.2f}, max {hi:.2f})"
+            f", {rates[bsz]['median']:.1f} crops/s (CUDA events, median of "
+            f"10) on {card}")
     # where the b256 step's time goes, stage by stage
     raw, fb, Kb = feeds[256]
     with torch.no_grad():
@@ -435,7 +660,8 @@ def main() -> int:
             ts.reshape(256, H, 3), Kb, n_fg, cfg),
     }
     with torch.no_grad():
-        parts = {k: time_ms(f, iters=5, warmup=1) for k, f in stages.items()}
+        parts = {k: time_ms(f, iters=5, warmup=1)[0]
+                 for k, f in stages.items()}
     log("[main] b256 stages ms: " + json.dumps(
         {k: round(v, 3) for k, v in parts.items()}))
     # how busy the card is during one b256 decode (torch.profiler)
@@ -460,28 +686,67 @@ def main() -> int:
             "seen, device busy share not measured")
 
     # ---- 6. kernel timing vs plain version vs bound --------------------
+    # The kernel's time is one pair of CUDA events around 100 launches of
+    # its C entry point on inputs and outputs made beforehand, over the
+    # count, 5 times; and its mean device time under torch.profiler. With
+    # --baseline the other build is timed the same way in turns: old,
+    # new, new, old.
     ops = epnp_operations(cfg.gn_iters)
-    timing = {}
+    stream = torch.cuda.current_stream().cuda_stream
+    timing, ab = {}, {}
     for n in (4096, 32768, 65536):
         pw, uv, _ = minimal_sets(n, 0.5, rng)
         a = torch.from_numpy(pw).to(dev)
         b = torch.from_numpy(uv).to(dev)
         Ks = torch.from_numpy(np.tile(K_LMO[None], (n, 1, 1))).to(dev)
-        saved = minimal_epnp_hypotheses.launches
-        k_ms = time_ms(lambda: minimal_epnp_hypotheses(a, b, Ks))
-        minimal_epnp_hypotheses.launches = saved
+        R = torch.empty((n, 3, 3), device=dev)
+        t = torch.empty((n, 3), device=dev)
+        ptrs = (a.data_ptr(), b.data_ptr(), Ks.data_ptr(), R.data_ptr(),
+                t.data_ptr(), n, cfg.gn_iters, stream)
+        new_fn = _lib()
+        new = lambda: check(new_fn(*ptrs) == 0, "launch failed")  # noqa: E731
+        if baseline is not None:
+            cam = (Ks if opts.baseline_intrinsics == "K" else torch.stack(
+                [Ks[:, 0, 0], Ks[:, 1, 1], Ks[:, 0, 2], Ks[:, 1, 2]],
+                -1).contiguous())
+            old_ptrs = ptrs[:2] + (cam.data_ptr(),) + ptrs[3:]
+            old = lambda: check(baseline(*old_ptrs) == 0,  # noqa: E731
+                                "baseline launch failed")
+            runs = {"old": [], "new": []}
+            for which in ("old", "new", "new", "old"):
+                runs[which] += time_launches(old if which == "old" else new)
+            ab[n] = {k: dict(stats(v), profiler_ms=profiled_ms(
+                old if k == "old" else new, "epnp")) for k, v in runs.items()}
+            k_runs = runs["new"]
+        else:
+            k_runs = time_launches(new)
+        k_prof = (ab[n]["new"]["profiler_ms"] if baseline is not None
+                  else profiled_ms(new, "epnp"))
         p_ms = time_ms(lambda: minimal_epnp_hypotheses_reference(a, b, Ks),
-                       iters=5, warmup=1)
-        bytes_ = n * (18 + 12 + 4 + 9 + 3) * 4   # p3, p2, fx/fy/cx/cy; R, t
+                       iters=5, warmup=1)[0]
+        bytes_ = n * (18 + 12 + 9 + 9 + 3) * 4   # p3, p2, Ks in; R, t out
         b_ops, b_bytes = n * ops / peak_ops * 1e3, bytes_ / peak_bw * 1e3
-        timing[n] = dict(ms=k_ms, plain_ms=p_ms,
+        k = stats(k_runs)
+        timing[n] = dict(ms=k["median"], ms_min=k["min"], ms_max=k["max"],
+                         profiler_ms=k_prof, plain_ms=p_ms,
                          bound_ms=max(b_ops, b_bytes),
                          bound_by="operations" if b_ops >= b_bytes
                          else "bytes")
-        log(f"[timing] N={n}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-            f"bound {timing[n]['bound_ms']:.5f} ms ({timing[n]['bound_by']}:"
-            f" {ops} ops/solve at {peak_ops / 1e12:.0f} TFLOP/s, "
-            f"{bytes_} B at {peak_bw / 1e12:.2f} TB/s) on {card}")
+        prof = "not seen" if k_prof is None else f"{k_prof:.4f} ms"
+        log(f"[timing] N={n}: kernel {k['median']:.4f} ms (min {k['min']:.4f}"
+            f", max {k['max']:.4f}; {len(k_runs)} runs of 100 launches), "
+            f"profiler {prof}, plain {p_ms:.3f} ms, bound "
+            f"{timing[n]['bound_ms']:.5f} ms ({timing[n]['bound_by']}: {ops} "
+            f"ops/solve at {peak_ops / 1e12:.0f} TFLOP/s, {bytes_} B at "
+            f"{peak_bw / 1e12:.2f} TB/s) on {card}")
+        if baseline is not None:
+            o, w_ = ab[n]["old"], ab[n]["new"]
+            log(f"[ab] N={n}: old {o['median']:.4f} ms (min {o['min']:.4f}, "
+                f"max {o['max']:.4f}, profiler {o['profiler_ms']}), new "
+                f"{w_['median']:.4f} ms (min {w_['min']:.4f}, max "
+                f"{w_['max']:.4f}, profiler {w_['profiler_ms']}): "
+                f"{o['median'] / w_['median']:.2f}x, turns old new new old, "
+                f"on {card}")
     log("[timing] library_ms: null -- no single PyTorch call computes a "
         "minimal-set EPnP")
 
@@ -495,8 +760,11 @@ def main() -> int:
            "bound_by": timing[main_n]["bound_by"], "library_ms": None,
            "n": main_n, "status": "ok",
            "by_n": {str(n): v for n, v in timing.items()},
+           "occupancy": occ,
            "crops_per_s": {str(k): v for k, v in rates.items()},
            "card": card}
+    if ab:
+        rec["ab"] = {str(n): v for n, v in ab.items()}
     log(json.dumps({"kernels": [rec]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,8 +2,10 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled at
 first use into a shared library under `zebrapose_tpu_torch/_build/`
-(listed in .gitignore), named by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one loads in milliseconds.
+(listed in .gitignore), named by a hash of the flags, the source and
+every file under `csrc/` that it includes (`#include "..."`, followed
+recursively), so an edited source or header rebuilds and an unchanged
+one loads in milliseconds.
 No PyTorch headers are included: nvcc takes seconds, not minutes.
 
 Flags: sm_90a, -O3, and NOT --use_fast_math — fast math changes sqrtf,
@@ -17,10 +19,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -28,6 +31,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -38,10 +42,34 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else "nvcc"
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+def sources(name: str, csrc: Path = CSRC) -> List[Path]:
+    """`csrc/<name>.cu` and every file under `csrc` that it includes with
+    quotes, directly or through another such file, in the order found.
+    Includes resolve against the including file's directory, as nvcc
+    resolves them; a name that is not a file under `csrc` is a system
+    header and is skipped."""
+    root = csrc.resolve()
+    found: List[Path] = []
+    todo = [root / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file() and root in dep.parents:
+                todo.append(dep)
+    return found
+
+
+def _target(name: str, csrc: Path = CSRC) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    root = csrc.resolve()
+    for path in sources(name, csrc):
+        h.update(str(path.relative_to(root)).encode() + b"\0")
+        h.update(path.read_bytes() + b"\0")
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> None:

@@ -8,16 +8,17 @@ n_hypotheses): control points, 12x12 MᵀM, 12x12 Cholesky + k=4 inverse
 subspace iteration, L6x10, three beta cases with Gauss-Newton, pose by
 scaled-Newton polar, lowest reprojection error wins.
 
-What bounds it on Hopper: operations, not bytes. Each solve reads 34
-floats and writes 12 (184 B) but does ~2.5·10⁴ float operations, a
+What bounds it on Hopper: operations, not bytes. Each solve reads 39
+floats and writes 12 (204 B) but does ~2.4·10⁴ float operations, a
 long dependent chain of scalar linear algebra with no reuse across
 solves. The TPU kernel put each scalar in an (8, 128) lane tile to keep
-1024 solves in lock step on the vector unit; on the GPU that becomes
-one thread per solve (128 threads a block, ceil(N/128) blocks, no
-padding of N), every scalar in a register or a local-memory slot. The
-12x12 arrays do not fit in registers, so they spill to local memory,
-which stays in L1/L2 at these sizes; staging through shared memory is
-left for a later change.
+1024 solves in lock step on the vector unit. On the GPU a block holds
+32 solves: lane l of each of its four warps works on solve l, and the
+warps split the solve along the algorithm's parallel axes (MᵀM blocks,
+one subspace column and one β case a warp), with the 12x12 state in
+shared memory; the source note in `csrc/epnp_minimal.cu` gives the
+layout, the occupancy measured and the numerics changes (reciprocal
+diagonals, `rsqrtf`, `rcbrtf`).
 
 `minimal_epnp_hypotheses` launches the kernel for CUDA tensors and runs
 the plain version for CPU tensors; nothing else selects between them.
@@ -81,15 +82,13 @@ def minimal_epnp_hypotheses(samp3d: torch.Tensor, samp2d: torch.Tensor,
         if x.device != samp3d.device:
             raise ValueError(f"{name} is on {x.device}, not "
                              f"{samp3d.device}")
-    cam = torch.stack([Ks[:, 0, 0], Ks[:, 1, 1], Ks[:, 0, 2], Ks[:, 1, 2]],
-                      dim=-1).contiguous()                     # [N, 4]
     R = torch.empty((n, 3, 3), dtype=torch.float32, device=samp3d.device)
     t = torch.empty((n, 3), dtype=torch.float32, device=samp3d.device)
     if n == 0:
         return R, t
     fn = _lib()
     stream = torch.cuda.current_stream(samp3d.device).cuda_stream
-    rc = fn(samp3d.data_ptr(), samp2d.data_ptr(), cam.data_ptr(),
+    rc = fn(samp3d.data_ptr(), samp2d.data_ptr(), Ks.data_ptr(),
             R.data_ptr(), t.data_ptr(), n, gn_iters, stream)
     if rc != 0:
         raise RuntimeError(f"zp_epnp_minimal launch failed: CUDA error {rc}")
@@ -98,3 +97,20 @@ def minimal_epnp_hypotheses(samp3d: torch.Tensor, samp2d: torch.Tensor,
 
 
 minimal_epnp_hypotheses.launches = 0
+
+
+def occupancy() -> dict:
+    """The kernel's resources as the CUDA runtime reports them: resident
+    blocks per SM, threads and static shared memory a block, registers
+    and local (spill) memory a thread."""
+    from zebrapose_tpu_torch.ops import _build
+
+    fn = _build.load("epnp_minimal").zp_epnp_minimal_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    rc = fn(out)
+    if rc != 0:
+        raise RuntimeError(f"zp_epnp_minimal_occupancy: CUDA error {rc}")
+    return dict(zip(("blocks_per_sm", "threads_per_block",
+                     "smem_per_block", "registers", "local_bytes"), out))
