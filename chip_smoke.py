@@ -20,6 +20,20 @@ check exits non-zero. Phases:
   5. main path   make_eval_step at full width, f32 logits vs the CPU
   6. timing      kernel (a loop of launches between two CUDA events, and
                  its device time under torch.profiler) vs plain vs bound
+  7. runner      `python -m zebrapose_tpu_torch test` (cli.main, in this
+                 process) over a BOP tree the port writes: 120 sphere
+                 frames whose rgb rows cycle through PNG filters 0-4, the
+                 committed rehearsal LUT and checkpoint, b32, plain and
+                 escalated; the collated frames against the written
+                 ones, the CSV, the kernel's launches, the runner against
+                 a direct make_eval_step call on the first batch, ADD
+                 recall against the JAX package's on the same tree; the
+                 command's time by stage as run_test logs it; recall
+                 over RANSAC seeds 0-3 with cuDNN TF32 on and off
+
+`--write-tree DIR` writes phase 7's tree (and its config) on the CPU and
+stops: the JAX package's `test` command runs on it for the reference
+recall.
 
 `--baseline OLD.cu` also builds another version of
 `csrc/epnp_minimal.cu` with the same C interface and times it against
@@ -40,6 +54,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,7 +64,18 @@ K_LMO = np.array([[572.4114, 0, 325.2611],
                   [0, 573.57043, 242.04899],
                   [0, 0, 1]], np.float32)
 CKPT = os.path.join(HERE, "trained", "rehearsal3_best.npz")
+# the checkpoint's surface code: the partition of uv_sphere() by the JAX
+# package's generate_mesh_surface_code (base 2, 16 levels, seed 0)
+LUT = os.path.join(HERE, "trained", "rehearsal3_lut.npz")
 SPHERE_RADIUS = 40.0      # the rehearsal object: a position-coded sphere
+TREE_FRAMES, TREE_SEED = 120, 3     # the runner phase's BOP tree
+# ADD recall@0.1d of the JAX package on that tree: `python -m
+# zebrapose_tpu test --batch_size 32` (and `--escalate_h 256`) with
+# JAX_PLATFORMS=cpu, JAX 0.9.0 on an x86 host's CPU. The card's recall
+# must reach each less RECALL_SLACK.
+JAX_CPU_RECALL = {"plain": 0.7833333333333333,
+                  "escalated": 0.7833333333333333}
+RECALL_SLACK = 0.10
 
 # H100 peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # (FP32 non-tensor FLOP/s, HBM bytes/s)
@@ -277,13 +303,16 @@ def relief_scene(rng, B=8, G=64, bits=16):
 def sphere_frames(B, rng):
     """480x640 BGR frames of the rehearsal object (a radius-40 sphere
     whose color codes its surface position) at random poses over random
-    background with pixel noise; returns frames, masks and bboxes."""
+    background with pixel noise; returns frames, bboxes [B, 4] (x, y, w,
+    h of the hit mask), hit masks [B, 480, 640] and poses (R [B, 3, 3],
+    t [B, 3]: camera point = R · model point + t)."""
     ys, xs = np.mgrid[0:480, 0:640]
     rays = np.stack([xs, ys, np.ones_like(xs)], -1).reshape(-1, 3) @ \
         np.linalg.inv(K_LMO.astype(np.float64)).T            # [P, 3]
     rr = (rays * rays).sum(-1)
     frames = np.empty((B, 480, 640, 3), np.uint8)
-    bboxes = []
+    hits = np.empty((B, 480, 640), bool)
+    bboxes, Rs, ts = [], [], []
     for b in range(B):
         R = np.linalg.qr(rng.normal(size=(3, 3)))[0]
         R *= np.sign(np.linalg.det(R))
@@ -299,10 +328,311 @@ def sphere_frames(B, rng):
         img = np.where(hit[:, None], color, bg) + rng.normal(
             0, 6, (480 * 640, 3))
         frames[b] = np.clip(img, 0, 255).astype(np.uint8).reshape(480, 640, 3)
-        hy, hx = np.nonzero(hit.reshape(480, 640))
+        hits[b] = hit.reshape(480, 640)
+        hy, hx = np.nonzero(hits[b])
         bboxes.append([hx.min(), hy.min(), hx.max() - hx.min() + 1,
                        hy.max() - hy.min() + 1])
-    return frames, np.array(bboxes)
+        Rs.append(R)
+        ts.append(t)
+    return frames, np.array(bboxes), hits, (np.array(Rs), np.array(ts))
+
+
+def uv_sphere(n_theta=260, n_phi=270, radius=SPHERE_RADIUS):
+    """The rehearsal object's mesh: a 70200-vertex UV sphere (more
+    vertices than the 2^16 classes of its surface code); vertices
+    [n, 3] float32 and faces [m, 3]."""
+    thetas = np.linspace(0, np.pi, n_theta)
+    phis = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+    T, P = np.meshgrid(thetas, phis, indexing="ij")
+    pts = np.stack([radius * np.sin(T) * np.cos(P),
+                    radius * np.sin(T) * np.sin(P),
+                    radius * np.cos(T)], axis=-1).reshape(-1, 3)
+    idx = np.arange(n_theta * n_phi).reshape(n_theta, n_phi)
+    a, c = idx[:-1], idx[1:]
+    b, d = np.roll(a, -1, axis=1), np.roll(c, -1, axis=1)
+    faces = np.stack([np.stack([a, b, c], -1), np.stack([b, d, c], -1)],
+                     axis=2).reshape(-1, 3)
+    return pts.astype(np.float32), faces.astype(np.int64)
+
+
+def write_tree(root, n_frames=TREE_FRAMES, seed=TREE_SEED):
+    """Write the runner phase's BOP tree under `root` with the port's
+    own writers: lmo, object ape (id 1), `n_frames` 480x640 sphere
+    frames whose rgb rows cycle through PNG filters 0-4, masks from the
+    hit mask, scene_camera / scene_gt / scene_gt_info, the UV-sphere
+    mesh (diameter 80), camera.json, the committed rehearsal LUT as
+    `models_GT_color/Class_CorresPoint000001.txt`, and a config file
+    `<root>/lmo_ape.txt`. Returns (config path, rgb frames, masks)."""
+    from zebrapose_tpu_torch.codec.lut import (
+        CorrespondenceLUT,
+        save_correspondence_lut,
+    )
+    from zebrapose_tpu_torch.data import png
+    from zebrapose_tpu_torch.data.bop_io import save_ply
+
+    ds = os.path.join(root, "lmo")
+    pts, faces = uv_sphere()
+    for d in ("models", "models_eval"):
+        os.makedirs(os.path.join(ds, d), exist_ok=True)
+        save_ply(os.path.join(ds, d, "obj_000001.ply"), pts, faces=faces)
+        with open(os.path.join(ds, d, "models_info.json"), "w") as f:
+            json.dump({"1": {"diameter": 2 * SPHERE_RADIUS}}, f)
+    with open(os.path.join(ds, "camera.json"), "w") as f:
+        json.dump({"cx": float(K_LMO[0, 2]), "cy": float(K_LMO[1, 2]),
+                   "fx": float(K_LMO[0, 0]), "fy": float(K_LMO[1, 1]),
+                   "width": 640, "height": 480, "depth_scale": 1.0}, f)
+    with np.load(LUT) as z:
+        lut = CorrespondenceLUT(z["points"], z["valid"], int(z["base"]),
+                                int(z["n_digits"]))
+        sha = str(z["text_sha256"])
+    lut_txt = os.path.join(ds, "models_GT_color",
+                           "Class_CorresPoint000001.txt")
+    os.makedirs(os.path.dirname(lut_txt), exist_ok=True)
+    save_correspondence_lut(lut_txt, lut)
+    with open(lut_txt, "rb") as f:
+        check(hashlib.sha256(f.read()).hexdigest() == sha,
+              "the LUT's text form differs from the one it was made as")
+
+    frames, bboxes, hits, (Rs, ts) = sphere_frames(
+        n_frames, np.random.default_rng(seed))
+    scene = os.path.join(ds, "test", "000001")
+    for sub in ("rgb", "mask", "mask_visib"):
+        os.makedirs(os.path.join(scene, sub), exist_ok=True)
+    cam, gt, gti = {}, {}, {}
+    cycle = np.arange(480) % 5
+    masks = hits.astype(np.uint8) * 255
+    for im in range(n_frames):
+        png.imwrite(os.path.join(scene, "rgb", f"{im:06d}.png"), frames[im],
+                    filters=cycle)
+        for sub in ("mask", "mask_visib"):
+            png.imwrite(os.path.join(scene, sub, f"{im:06d}_000000.png"),
+                        masks[im])
+        cam[str(im)] = {"cam_K": K_LMO.reshape(-1).tolist(),
+                        "depth_scale": 1.0}
+        gt[str(im)] = [{"cam_R_m2c": Rs[im].reshape(-1).tolist(),
+                        "cam_t_m2c": ts[im].tolist(), "obj_id": 1}]
+        gti[str(im)] = [{"bbox_visib": [int(v) for v in bboxes[im]],
+                         "visib_fract": 1.0}]
+    for name, obj in (("scene_camera", cam), ("scene_gt", gt),
+                      ("scene_gt_info", gti)):
+        with open(os.path.join(scene, f"{name}.json"), "w") as f:
+            json.dump(obj, f)
+    cfg_path = os.path.join(root, "lmo_ape.txt")
+    with open(cfg_path, "w") as f:
+        f.write(f"bop_path = {root}\ndataset_name = lmo\n"
+                "test_folder = test\nBoundingBox_CropSize_image = 256\n"
+                "BoundingBox_CropSize_GT = 128\n"
+                "divide_number_each_itration = 2\n"
+                "number_of_itration = 16\n")
+    return cfg_path, frames, masks
+
+
+def png_decode_ms(frame, tmp):
+    """ms to read one 480x640 BGR frame with the port's reader, by the
+    filter its rows carry (median of 3 reads each)."""
+    from zebrapose_tpu_torch.data import png
+
+    out = {}
+    for name, filters in (("none", 0), ("sub", 1), ("up", 2),
+                          ("average", 3), ("paeth", 4),
+                          ("cycle0-4", np.arange(480) % 5)):
+        path = os.path.join(tmp, f"decode_{name}.png")
+        png.imwrite(path, frame, filters=filters)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            png.imread(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = float(np.median(times))
+    return out
+
+
+def runner_phase(dev, card, tmp, n_frames=TREE_FRAMES):
+    """Phase 7 (see the module docstring): the `test` command twice, on
+    `dev`; returns its record (metrics, rates, launches)."""
+    import torch
+
+    from zebrapose_tpu_torch import cli
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.eval.evaluate import (
+        batch_generator,
+        evaluate_object,
+        run_inference,
+    )
+    from zebrapose_tpu_torch.eval.runner import (
+        build_eval_step,
+        load_model,
+        prepare_object_eval,
+    )
+    from zebrapose_tpu_torch.ops.pnp import PnPConfig
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+
+    t0 = time.perf_counter()
+    cfg_path, frames, masks = write_tree(os.path.join(tmp, "bop"), n_frames)
+    n, bsz = len(frames), 32
+    log(f"[runner] tree of {n} frames written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rec = {"frames": n, "batch": bsz, "card": card, "runs": {}}
+    for name, extra in (("plain", []),
+                        ("escalated", ["--escalate_h", "256"])):
+        out = os.path.join(tmp, f"out_{name}")
+        minimal_epnp_hypotheses.launches = 0      # this path's run
+        t0 = time.perf_counter()
+        rc = cli.main(["test", "--cfg", cfg_path, "--obj_name", "ape",
+                       "--ckpt_file", CKPT, "--batch_size", str(bsz),
+                       "--output_dir", out, "--device", str(dev)] + extra)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = minimal_epnp_hypotheses.launches
+        check(rc == 0, f"{name}: test returned {rc}")
+        check(launches >= -(-n // bsz), f"{name}: the kernel was launched "
+              f"{launches} times over {-(-n // bsz)} batches")
+        (run_dir,) = os.listdir(out)
+        run_dir = os.path.join(out, run_dir)
+        with open(os.path.join(run_dir, "pose_result_bop",
+                               "lmo_ape.csv")) as f:
+            rows = f.read().splitlines()
+        check(rows[0] == "scene_id,im_id,obj_id,score,R,t,time"
+              and [r.split(",")[:3] for r in rows[1:]]
+              == [["1", str(i), "1"] for i in range(n)],
+              f"{name}: the CSV does not hold one row per frame")
+        with open(os.path.join(run_dir, "ADD_result.txt")) as f:
+            metrics = {k: float(v) for k, v in
+                       (ln.split() for ln in f.read().splitlines())}
+        with open(os.path.join(run_dir, "log.txt")) as f:
+            logged = dict(ln.split() for ln in f.read().splitlines()
+                          if ln.split()[:1] and ln.split()[0] in metrics)
+        check(len(metrics) == 6 and {k: float(v) for k, v in logged.items()}
+              == metrics, f"{name}: ADD_result.txt / log.txt")
+        with open(os.path.join(run_dir, "log.txt")) as f:
+            (timing,) = [json.loads(ln.split(" ", 1)[1]) for ln in f
+                         if ln.startswith("timing ")]
+        want = JAX_CPU_RECALL[name] - RECALL_SLACK
+        log(f"[runner] {name}: ADD recall 0.1d "
+            f"{metrics['ADD_recall_0.1d']:.4f} (JAX on a CPU "
+            f"{JAX_CPU_RECALL[name]:.4f}, gate >= {want:.4f}),"
+            f" 0.05d {metrics['ADD_recall_0.05d']:.4f}, 0.02d "
+            f"{metrics['ADD_recall_0.02d']:.4f}, mean err "
+            f"{metrics['ADD_mean_err']:.3f} mm, AUC step "
+            f"{metrics['ADD_auc_step']:.4f}, AUC posecnn "
+            f"{metrics['ADD_auc_posecnn']:.4f}; {n / wall:.2f} frames/s of "
+            f"the whole command ({wall:.2f} s), {launches} kernel launches "
+            f"on {card}")
+        check(metrics["ADD_recall_0.1d"] >= want,
+              f"{name}: ADD recall@0.1d below the JAX package's less "
+              f"{RECALL_SLACK}")
+        batches = -(-n // bsz)
+        other = wall - sum(timing[k] for k in (
+            "prepare_s", "load_model_s", "inference_s", "pose_errors_s",
+            "write_s"))
+
+        def share(s):
+            return f"{s:.2f} s, {100 * s / wall:.1f}%"
+        log(f"[runner] {name}: where the {wall:.2f} s went, timed in the "
+            f"run: walk + LUT + mesh {share(timing['prepare_s'])}; model "
+            f"load {share(timing['load_model_s'])}; run_inference "
+            f"{share(timing['inference_s'])} (the device loop waited for "
+            f"the host {share(timing['wait_s'])}, issued steps "
+            f"{share(timing['step_s'])}, fetched poses "
+            f"{share(timing['fetch_s'])}; the producer collated for "
+            f"{timing['collate_s']:.2f} s on 4 decode threads); pose errors "
+            f"{share(timing['pose_errors_s'])}; artifacts "
+            f"{share(timing['write_s'])}; the rest {share(other)}"
+            + ("" if "device_s" not in timing else
+               f". The {batches} steps spanned "
+               f"{share(timing['device_s'])} of the device stream "
+               f"({1e3 * timing['device_s'] / batches:.2f} ms a batch; "
+               f"CUDA events, so the span holds the host's issuing too)")
+            + f" on {card}")
+        rec["runs"][name] = {"metrics": metrics, "wall_s": wall,
+                             "frames_per_s": n / wall, "launches": launches,
+                             "timing": timing}
+
+    # the frames the dataset collates are the frames written
+    cfg = ZebraConfig.from_file(cfg_path)
+    oe = prepare_object_eval(cfg, "ape")
+    check(len(oe.dataset) == n, "the walk lost frames")
+    batches = [oe.dataset.collate(list(range(s, min(s + bsz, n))))
+               for s in range(0, n, bsz)]
+    rows = {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+    for key, written in (("rgb", frames), ("mask", masks),
+                         ("entire_mask", masks)):
+        got = rows[key]
+        check(got.dtype == written.dtype and got.shape == written.shape
+              and got.tobytes() == written.tobytes(),
+              f"collated {key} differs from what was written")
+    decode = png_decode_ms(frames[0], tmp)
+    log(f"[runner] PNG decode of one 480x640 BGR frame on the host, ms by "
+        f"row filter: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                    decode.items()))
+
+    # the runner's first batch = one direct make_eval_step call
+    model = load_model(cfg, CKPT, "v2", device=dev)
+    step = build_eval_step(cfg, model, oe.lut, PnPConfig(), device=dev)
+    first = prepare_object_eval(cfg, "ape", max_samples=bsz).dataset
+    R, t, ok = run_inference(first, step, batch_size=bsz, seed=0,
+                             device=dev)
+    raw = batches[0]
+    feed = {k: raw[k] for k in ("rgb", "label", "mask", "entire_mask",
+                                "roi_param", "valid")}
+    args = (feed, raw["final_bbox"].astype(np.int32), raw["K"])
+    Rd, td, okd, _ = (x.cpu().numpy() for x in step(
+        *args, generator=batch_generator(0, 0, dev)))
+    check(np.array_equal(R, Rd) and np.array_equal(t, td)
+          and np.array_equal(ok, okd),
+          "run_inference's first batch differs from make_eval_step's")
+    log(f"[runner] first batch: run_inference = make_eval_step (R, t, "
+        f"success equal; solved {ok.mean():.3f})")
+
+    # recall@0.1d over RANSAC seeds 0-3, with cuDNN's TF32 convolutions
+    # on (PyTorch's default, as in the runs above) and off: the draws'
+    # spread against TF32's effect. The frames collated above are served
+    # from memory, so no PNG decode runs beside the steps here.
+    collated = _Collated(oe.dataset, rows)
+    sweep, step_ms = {}, {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        for allow in (True, False):
+            torch.backends.cudnn.allow_tf32 = allow
+            for name, pcfg in (
+                    ("plain", PnPConfig()),
+                    ("escalated", PnPConfig(escalate_hypotheses=256,
+                                            escalate_inlier_frac=0.4))):
+                st = build_eval_step(cfg, model, oe.lut, pcfg, device=dev)
+                key = f"{name}, tf32 {'on' if allow else 'off'}"
+                res = [evaluate_object(
+                    collated, st, oe.vertices, oe.diameter, oe.symmetric,
+                    oe.obj_id, cfg.dataset_name, "ape", batch_size=bsz,
+                    seed=seed, device=dev) for seed in range(4)]
+                sweep[key] = [r.metrics["ADD_recall_0.1d"] for r in res]
+                step_ms[key] = [1e3 * r.timing["step_s"] / -(-n // bsz)
+                                for r in res]
+                log(f"[runner] recall@0.1d over seeds 0-3, {key}: "
+                    + " ".join(f"{r:.4f}" for r in sweep[key])
+                    + f" (mean {np.mean(sweep[key]):.4f}); a b{bsz} step "
+                    f"issued in " + " ".join(f"{t:.1f}" for t in step_ms[key])
+                    + f" ms (host clock; frames from memory) on {card}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    rec.update(png_decode_ms=decode, recall_by_seed=sweep,
+               sweep_step_ms=step_ms)
+    return rec
+
+
+class _Collated:
+    """A dataset's frames collated once, served from memory to
+    evaluate_object (its len, gts, rgb_files and collate)."""
+
+    def __init__(self, dataset, rows):
+        self.gts, self.rgb_files = dataset.gts, dataset.rgb_files
+        self._rows = rows
+
+    def __len__(self):
+        return len(self.gts)
+
+    def collate(self, indices, executor=None):
+        return {k: v[list(indices)] for k, v in self._rows.items()}
 
 
 def build_baseline(path):
@@ -334,7 +664,15 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline-intrinsics", choices=("K", "fxfycxcy"),
                     default="K", help="the baseline's third argument: Ks "
                     "[N, 3, 3] or [N, 4] (fx, fy, cx, cy)")
+    ap.add_argument("--write-tree", metavar="DIR",
+                    help="write the runner phase's BOP tree (and its "
+                    "config DIR/lmo_ape.txt) on the CPU, and stop")
     opts = ap.parse_args(argv)
+    if opts.write_tree:
+        sys.path.insert(0, HERE)
+        cfg_path, _, _ = write_tree(os.path.abspath(opts.write_tree))
+        log(f"[tree] {cfg_path}")
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -397,7 +735,10 @@ def main(argv=None) -> int:
     # ---- 3. kernel vs plain version on minimal sets --------------------
     rng = np.random.default_rng(5)
     max_abs = 0.0
-    for n, noise in ((4096, 0.0), (4096, 0.5), (32768, 0.5)):
+    # every N the driven paths launch: b32 (4096), the runner's escalated
+    # stage 2 at b32 (8192), b256 (32768), [main]'s escalated b256 (65536)
+    for n, noise in ((4096, 0.0), (4096, 0.5), (8192, 0.5), (32768, 0.5),
+                     (65536, 0.5)):
         pw, uv, R0 = minimal_sets(n, noise, rng)
         a = torch.from_numpy(pw).to(dev)
         b = torch.from_numpy(uv).to(dev)
@@ -518,7 +859,7 @@ def main(argv=None) -> int:
     log(f"[main] checkpoint {os.path.relpath(CKPT, HERE)} (step "
         f"{meta.get('step')}), v2, {n_bits} bits, bf16 on {name}")
 
-    frames, det = sphere_frames(256, np.random.default_rng(7))
+    frames, det, _, _ = sphere_frames(256, np.random.default_rng(7))
     params, fbs = [], []
     for bb in det:
         pb = padding_bbox(bb, 1.5)
@@ -750,6 +1091,10 @@ def main(argv=None) -> int:
     log("[timing] library_ms: null -- no single PyTorch call computes a "
         "minimal-set EPnP")
 
+    # ---- 7. the test runner --------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        runner = runner_phase(dev, card, tmp)
+
     main_n = 256 * cfg.n_hypotheses                  # the b256 stage
     rec = {"name": "minimal_epnp_hypotheses", "route": "cuda",
            "source": "zebrapose_tpu_torch/csrc/epnp_minimal.cu",
@@ -762,7 +1107,11 @@ def main(argv=None) -> int:
            "by_n": {str(n): v for n, v in timing.items()},
            "occupancy": occ,
            "crops_per_s": {str(k): v for k, v in rates.items()},
-           "card": card}
+           "launches_by_path": {
+               "main": main_launches,
+               **{f"runner_{k}": v["launches"]
+                  for k, v in runner["runs"].items()}},
+           "runner": runner, "card": card}
     if ab:
         rec["ab"] = {str(n): v for n, v in ab.items()}
     log(json.dumps({"kernels": [rec]}))

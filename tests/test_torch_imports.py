@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port.
 
-The port and `chip_smoke.py` must run where JAX is not installed: they
-import neither `jax`, `flax` nor any `zebrapose_tpu` module. The check
+The port and `chip_smoke.py` must run where JAX, cv2 and PIL are not
+installed: they import neither `jax`, `flax`, `ml_dtypes`, `cv2`, `PIL`
+nor any `zebrapose_tpu` module. The check
 runs in a subprocess, because this test process already imported JAX
 (tests/conftest.py). Also: entry points refuse to fall back to the CPU,
 and importing the port leaves the TF32 switches at PyTorch's defaults.
@@ -28,9 +29,9 @@ mods = [m.name for m in pkgutil.walk_packages(zebrapose_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke  # noqa: F401  (its import closure; main() does not run)
+roots = ("jax", "flax", "ml_dtypes", "cv2", "PIL", "zebrapose_tpu")
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "zebrapose_tpu")
-             or m.startswith(("jax.", "flax.", "zebrapose_tpu.")))
+             if m in roots or m.startswith(tuple(r + "." for r in roots)))
 print(json.dumps({"modules": mods, "bad": bad,
                   "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
                   "cudnn_tf32": torch.backends.cudnn.allow_tf32}))
@@ -58,7 +59,10 @@ def test_port_imports_no_jax_in_subprocess():
                 "models.resnet", "models.aspp", "models.zebra_net",
                 "models.convert", "ops.binarize", "ops.fast_linalg",
                 "ops.pnp_kernel", "ops.pnp", "ops.metrics",
-                "eval.evaluate"}
+                "eval.evaluate", "data.png", "config", "data.dataset_info",
+                "data.bop_io", "data.detections", "data.bop_writer",
+                "utils.logging", "utils.profiling", "eval.runner", "cli",
+                "__main__"}
     assert {"zebrapose_tpu_torch." + m for m in expected} <= \
         set(res["modules"])
     # the port does not touch the TF32 switches: float32 matmuls stay
@@ -68,7 +72,7 @@ def test_port_imports_no_jax_in_subprocess():
 
 
 def test_port_sources_name_no_jax():
-    pat = re.compile(r"^\s*(import jax|from jax|import flax|from flax)"
+    pat = re.compile(r"^\s*(import|from) (jax|flax|ml_dtypes|cv2|PIL)\b"
                      r"|zebrapose_tpu\.", re.M)
     hits = []
     for path in _port_sources():

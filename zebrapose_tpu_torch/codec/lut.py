@@ -56,6 +56,19 @@ def load_correspondence_lut(path: str) -> CorrespondenceLUT:
                              n_digits=n_digits)
 
 
+def save_correspondence_lut(path: str, lut: CorrespondenceLUT) -> None:
+    """Write a LUT in the reference text format (`load_correspondence_lut`
+    reads it back)."""
+    with open(path, "w") as f:
+        f.write(f"{lut.num_classes} {lut.base} {lut.n_digits}\n")
+        for i in range(lut.num_classes):
+            if lut.valid[i]:
+                x, y, z = (float(v) for v in lut.points[i])
+                f.write(f"{i} {x} {y} {z}\n")
+            else:
+                f.write(f"{i} nan nan nan\n")
+
+
 def reduce_lut_ignore_bits(lut: CorrespondenceLUT,
                            ignore_bits: int) -> CorrespondenceLUT:
     """Drop the last `ignore_bits` levels: new point = mean over the
