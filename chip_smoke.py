@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's inference path on one CUDA card.
+"""Drive the PyTorch port's inference and training paths on one CUDA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline OLD.cu --baseline-intrinsics fxfycxcy
@@ -30,10 +30,21 @@ check exits non-zero. Phases:
                  recall against the JAX package's on the same tree; the
                  command's time by stage as run_test logs it; recall
                  over RANSAC seeds 0-3 with cuDNN TF32 on and off
+  8. train       a training split written into phase 7's tree (160
+                 sphere frames, GT labels from the committed LUT); one
+                 b8 train step on the card against the CPU (f32, TF32
+                 off, the committed weights, injected augmentation);
+                 `python -m zebrapose_tpu_torch train` (cli.main, in this
+                 process) from scratch in bf16 at b32, 300 steps with pose
+                 validation every 100 (the kernel's launches counted),
+                 the loss's fall, the checkpoints, `test` on the best
+                 one, a resume for 10 steps; ms a step (bf16, f32, and
+                 streaming from PNG), the share spent waiting for a
+                 batch, peak device memory
 
-`--write-tree DIR` writes phase 7's tree (and its config) on the CPU and
-stops: the JAX package's `test` command runs on it for the reference
-recall.
+`--write-tree DIR` writes phase 7's tree with phase 8's training split
+(and their configs) on the CPU and stops: the JAX package's `test`
+command runs on it for the reference recall.
 
 `--baseline OLD.cu` also builds another version of
 `csrc/epnp_minimal.cu` with the same C interface and times it against
@@ -69,6 +80,12 @@ CKPT = os.path.join(HERE, "trained", "rehearsal3_best.npz")
 LUT = os.path.join(HERE, "trained", "rehearsal3_lut.npz")
 SPHERE_RADIUS = 40.0      # the rehearsal object: a position-coded sphere
 TREE_FRAMES, TREE_SEED = 120, 3     # the runner phase's BOP tree
+# the training phase: its split of the tree, the command's steps and log
+# cadence (3 log steps: 3 rolling checkpoints, 3 pose validations), the
+# batch of the card-vs-CPU step check
+TRAIN_FRAMES, TRAIN_SEED = 160, 4
+TRAIN_STEPS, TRAIN_LOG_FREQ, TRAIN_BATCH = 300, 100, 32
+STEP_CHECK_BATCH = 8
 # ADD recall@0.1d of the JAX package on that tree: `python -m
 # zebrapose_tpu test --batch_size 32` (and `--escalate_h 256`) with
 # JAX_PLATFORMS=cpu, JAX 0.9.0 on an x86 host's CPU. The card's recall
@@ -162,6 +179,30 @@ def profiled_ms(fn, name, launches=20):
         return None
     return (sum(e.self_device_time_total for e in ev)
             / sum(e.count for e in ev) / 1e3)
+
+
+def busy_share(fn, steps):
+    """(share of the wall the device spent in kernels, kernels a step)
+    over one call of `fn` (`steps` steps) under torch.profiler, from a
+    drained device to a drained device; (None, 0) when the profiler sees
+    no device kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return None, 0
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    return busy / wall, sum(e.count for e in kern) / steps
 
 
 def stats(xs):
@@ -300,38 +341,58 @@ def relief_scene(rng, B=8, G=64, bits=16):
     return masks, codes, lut_pts, lut_valid, bboxes, R_gt
 
 
-def sphere_frames(B, rng):
-    """480x640 BGR frames of the rehearsal object (a radius-40 sphere
-    whose color codes its surface position) at random poses over random
-    background with pixel noise; returns frames, bboxes [B, 4] (x, y, w,
-    h of the hit mask), hit masks [B, 480, 640] and poses (R [B, 3, 3],
-    t [B, 3]: camera point = R · model point + t)."""
+def pixel_rays():
+    """[480 * 640, 3] rays K^-1 (x, y, 1) of every pixel, row-major."""
     ys, xs = np.mgrid[0:480, 0:640]
-    rays = np.stack([xs, ys, np.ones_like(xs)], -1).reshape(-1, 3) @ \
-        np.linalg.inv(K_LMO.astype(np.float64)).T            # [P, 3]
+    return np.stack([xs, ys, np.ones_like(xs)], -1).reshape(-1, 3) @ \
+        np.linalg.inv(K_LMO.astype(np.float64)).T
+
+
+def sphere_surface(rays, R, t):
+    """Which rays hit the rehearsal sphere at pose (R, t), and each
+    ray's first surface point in the model frame ([P] bool, [P, 3];
+    the points of missing rays are meaningless)."""
     rr = (rays * rays).sum(-1)
+    dt = rays @ t
+    disc = dt * dt - rr * (t @ t - SPHERE_RADIUS ** 2)
+    hit = disc >= 0
+    s = (dt - np.sqrt(np.where(hit, disc, 0))) / rr
+    return hit, (s[:, None] * rays - t) @ R
+
+
+def sphere_frame(rng, rays):
+    """One 480x640 BGR frame of the rehearsal object (a radius-40 sphere
+    whose color codes its surface position) at a random pose over random
+    background with pixel noise: frame, hit mask [480, 640], the rays'
+    model-frame surface points [P, 3], bbox (x, y, w, h of the hit
+    mask), R [3, 3], t [3] (camera point = R · model point + t)."""
+    R = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    R *= np.sign(np.linalg.det(R))
+    t = np.array([rng.uniform(-40, 40), rng.uniform(-30, 30),
+                  rng.uniform(480, 650)])
+    hit, pm = sphere_surface(rays, R, t)
+    color = (pm / SPHERE_RADIUS * 0.5 + 0.5) * 255
+    bg = rng.integers(0, 255, (480 * 640, 3))
+    img = np.where(hit[:, None], color, bg) + rng.normal(
+        0, 6, (480 * 640, 3))
+    frame = np.clip(img, 0, 255).astype(np.uint8).reshape(480, 640, 3)
+    hy, hx = np.nonzero(hit.reshape(480, 640))
+    bbox = [hx.min(), hy.min(), hx.max() - hx.min() + 1,
+            hy.max() - hy.min() + 1]
+    return frame, hit.reshape(480, 640), pm, bbox, R, t
+
+
+def sphere_frames(B, rng):
+    """B frames of `sphere_frame`, drawn in turn from `rng`; returns
+    frames, bboxes [B, 4], hit masks [B, 480, 640] and poses (R [B, 3,
+    3], t [B, 3])."""
+    rays = pixel_rays()
     frames = np.empty((B, 480, 640, 3), np.uint8)
     hits = np.empty((B, 480, 640), bool)
     bboxes, Rs, ts = [], [], []
     for b in range(B):
-        R = np.linalg.qr(rng.normal(size=(3, 3)))[0]
-        R *= np.sign(np.linalg.det(R))
-        t = np.array([rng.uniform(-40, 40), rng.uniform(-30, 30),
-                      rng.uniform(480, 650)])
-        dt = rays @ t
-        disc = dt * dt - rr * (t @ t - SPHERE_RADIUS ** 2)
-        hit = disc >= 0
-        s = (dt - np.sqrt(np.where(hit, disc, 0))) / rr
-        pm = (s[:, None] * rays - t) @ R                       # model frame
-        color = (pm / SPHERE_RADIUS * 0.5 + 0.5) * 255
-        bg = rng.integers(0, 255, (480 * 640, 3))
-        img = np.where(hit[:, None], color, bg) + rng.normal(
-            0, 6, (480 * 640, 3))
-        frames[b] = np.clip(img, 0, 255).astype(np.uint8).reshape(480, 640, 3)
-        hits[b] = hit.reshape(480, 640)
-        hy, hx = np.nonzero(hits[b])
-        bboxes.append([hx.min(), hy.min(), hx.max() - hx.min() + 1,
-                       hy.max() - hy.min() + 1])
+        frames[b], hits[b], _, bbox, R, t = sphere_frame(rng, rays)
+        bboxes.append(bbox)
         Rs.append(R)
         ts.append(t)
     return frames, np.array(bboxes), hits, (np.array(Rs), np.array(ts))
@@ -425,6 +486,77 @@ def write_tree(root, n_frames=TREE_FRAMES, seed=TREE_SEED):
                 "divide_number_each_itration = 2\n"
                 "number_of_itration = 16\n")
     return cfg_path, frames, masks
+
+
+def write_train_split(root, n_frames=TRAIN_FRAMES, seed=TRAIN_SEED):
+    """Write the training phase's split into the tree under `root`
+    (after `write_tree`): `lmo/train_real/000001` with `n_frames` sphere
+    frames (frame i from default_rng([seed, i])), their rows written with the Sub filter (the one
+    `cv2.imwrite` picks), masks, scene_camera / scene_gt /
+    scene_gt_info, and GT labels in `lmo/train_real_GT_v2/000001`. A hit
+    pixel's label is the class whose committed LUT centroid lies nearest
+    to the pixel's model-frame surface point: the LUT's Voronoi cells,
+    not the partitioner's faces (its order cannot be reproduced off the
+    host that built the LUT, ROADMAP A item 4). Also writes the config
+    `<root>/lmo_ape_train.txt`. Returns its path."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from zebrapose_tpu_torch.codec.surface_code import class_id_to_rgb
+    from zebrapose_tpu_torch.data import png
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with np.load(LUT) as z:
+        ids = np.flatnonzero(z["valid"])
+        cells = cKDTree(z["points"][ids].astype(np.float64))
+    ds = os.path.join(root, "lmo")
+    scene = os.path.join(ds, "train_real", "000001")
+    gt_dir = os.path.join(ds, "train_real_GT_v2", "000001")
+    for d in (os.path.join(scene, "rgb"), os.path.join(scene, "mask"),
+              os.path.join(scene, "mask_visib"), gt_dir):
+        os.makedirs(d, exist_ok=True)
+    rays = pixel_rays()
+
+    def write_frame(im):
+        # one generator a frame, so the frames render on a thread pool
+        frame, hit, pm, bbox, R, t = sphere_frame(
+            np.random.default_rng([seed, im]), rays)
+        png.imwrite(os.path.join(scene, "rgb", f"{im:06d}.png"), frame,
+                    filters=1)
+        mask = hit.astype(np.uint8) * 255
+        for sub in ("mask", "mask_visib"):
+            png.imwrite(os.path.join(scene, sub, f"{im:06d}_000000.png"), mask)
+        cls = np.zeros(480 * 640, np.int64)
+        on = hit.reshape(-1)
+        cls[on] = ids[cells.query(pm[on])[1]]
+        label = class_id_to_rgb(torch.from_numpy(cls.reshape(480, 640)))
+        png.imwrite(os.path.join(gt_dir, f"{im:06d}_000000.png"),
+                    label.numpy(), filters=1)
+        return bbox, R, t
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        poses = list(pool.map(write_frame, range(n_frames)))
+    cam, gt, gti = {}, {}, {}
+    for im, (bbox, R, t) in enumerate(poses):
+        cam[str(im)] = {"cam_K": K_LMO.reshape(-1).tolist(),
+                        "depth_scale": 1.0}
+        gt[str(im)] = [{"cam_R_m2c": R.reshape(-1).tolist(),
+                        "cam_t_m2c": t.tolist(), "obj_id": 1}]
+        gti[str(im)] = [{"bbox_visib": [int(v) for v in bbox],
+                         "visib_fract": 1.0}]
+    for name, obj in (("scene_camera", cam), ("scene_gt", gt),
+                      ("scene_gt_info", gti)):
+        with open(os.path.join(scene, f"{name}.json"), "w") as f:
+            json.dump(obj, f)
+    cfg_path = os.path.join(root, "lmo_ape_train.txt")
+    with open(os.path.join(root, "lmo_ape.txt")) as f:
+        base = f.read()
+    with open(cfg_path, "w") as f:
+        f.write(base + "training_data_folder = train_real\n"
+                "val_folder = test\n"
+                f"batch_size = {TRAIN_BATCH}\nlearning_rate = 2e-4\n")
+    return cfg_path
 
 
 def png_decode_ms(frame, tmp):
@@ -635,6 +767,280 @@ class _Collated:
         return {k: v[list(indices)] for k, v in self._rows.items()}
 
 
+class _Batches:
+    """Batches collated once, served in turn from memory (a train
+    iterator for timing the step without the host's reads)."""
+
+    def __init__(self, batches):
+        self.batches, self.i = batches, 0
+
+    def __next__(self):
+        self.i += 1
+        return self.batches[(self.i - 1) % len(self.batches)]
+
+    def close(self):
+        pass
+
+
+def _metrics_rows(run):
+    with open(os.path.join(run, "logs", "metrics.jsonl")) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def step_check(dev, card, cfg, root):
+    """Phase 8, item 2: one training step on the card against the CPU
+    from the committed weights, on the same batch (jittered crops of the
+    training split) and the same injected augmentation, float32 with
+    TF32 off, from a carried histogram EMA (a code bit that flips between
+    the two changes it by 0.05 / (mask pixels + 1))."""
+    import torch
+
+    from zebrapose_tpu_torch.data import bop_io
+    from zebrapose_tpu_torch.data.pipeline import (
+        CropDatasetHost,
+        preprocess_batch,
+    )
+    from zebrapose_tpu_torch.models.convert import variables_to_state_dict
+    from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
+    from zebrapose_tpu_torch.ops.augment import draw_augment
+    from zebrapose_tpu_torch.train import trainer
+    from zebrapose_tpu_torch.train.state import create_train_state
+    from zebrapose_tpu_torch.train.train_step import train_step
+    from zebrapose_tpu_torch.utils.compact_ckpt import load_compact
+
+    n = STEP_CHECK_BATCH
+    samples = bop_io.get_dataset(root, "lmo", train=True,
+                                 data_folder="train_real")
+    ds = CropDatasetHost(samples.dataset_dir, "train_real",
+                         *samples.for_obj(1), is_train=True)
+    raw = ds.collate(list(range(n)))
+    sd = variables_to_state_dict(load_compact(CKPT)[0], "v2")
+    draws = draw_augment(torch.Generator().manual_seed(12), n, 256, 256)
+    hist0 = torch.linspace(0.02, 0.45, 16)
+    got = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for d in (dev, torch.device("cpu")):
+            model = ZebraPoseNet(binary_code_length=16, variant="v2")
+            model.load_state_dict(sd, strict=True)
+            model = model.to(d).to(memory_format=torch.channels_last)
+            state = create_train_state(model, cfg.learning_rate, n_bits=16)
+            state.histogram = hist0.to(d)
+            batch = preprocess_batch(
+                {k: torch.as_tensor(raw[k]).to(d) for k in
+                 trainer._FEED_KEYS}, crop_img=256, crop_gt=128,
+                is_train=True, draws=draws.to(d))
+            t0 = time.perf_counter()
+            m = train_step(state, batch, trainer._loss_cfg(cfg),
+                           binary_loss_weight=float(cfg.binary_loss_weight),
+                           predict_entire_mask=cfg.predict_entire_mask)
+            m = {k: float(v) for k, v in m.items()}
+            secs = time.perf_counter() - t0
+            stats = {k: v.cpu() for k, v in model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+            got[d.type] = (m, stats, state.histogram.cpu(), secs)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (mc, sc, hc, tc), (mp, sp, hp, tp) = got[dev.type], got["cpu"]
+    rel = {k: abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-12)
+           for k in ("loss_total", "grad_norm")}
+    bn_err = max(float(((sc[k] - sp[k]).abs()
+                        / sp[k].abs().clamp(min=1.0)).max()) for k in sp)
+    hist_err = float((hc - hp).abs().max())
+    log(f"[train] one b{n} step, card vs CPU (f32, TF32 off, the committed "
+        f"weights, injected augmentation): loss_total {mc['loss_total']:.6f}"
+        f" vs {mp['loss_total']:.6f} (rel {rel['loss_total']:.2e}), "
+        f"grad_norm {mc['grad_norm']:.6f} vs {mp['grad_norm']:.6f} (rel "
+        f"{rel['grad_norm']:.2e}); BN running statistics max err "
+        f"{bn_err:.2e} (relative to max(1, |value|)) over {len(sp)} "
+        f"tensors; histogram max err {hist_err:.2e}; the step took "
+        f"{tc:.2f} s on the card (first, with cuDNN's search) and "
+        f"{tp:.2f} s on the CPU, on {card}")
+    check(rel["loss_total"] <= 1e-3 and rel["grad_norm"] <= 1e-3,
+          "train step: loss or grad_norm differ between card and CPU")
+    check(bn_err <= 1e-4, "train step: BN running statistics differ")
+    check(hist_err <= 1e-5, "train step: histograms differ")
+    return {"batch": n, "rel": rel, "bn_err": bn_err, "hist_err": hist_err,
+            "card_s": tc, "cpu_s": tp}
+
+
+def train_phase(dev, card, tmp):
+    """Phase 8 (see the module docstring), after phase 7 wrote its tree
+    under `tmp`; returns its record."""
+    import torch
+
+    from zebrapose_tpu_torch import cli
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+    from zebrapose_tpu_torch.train import trainer
+
+    root = os.path.join(tmp, "bop")
+    t_phase = t0 = time.perf_counter()
+    cfg_path = write_train_split(root)
+    log(f"[train] split of {TRAIN_FRAMES} frames with GT labels written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = ZebraConfig.from_file(cfg_path)
+    rec = {"card": card, "frames": TRAIN_FRAMES, "batch": TRAIN_BATCH,
+           "steps": TRAIN_STEPS, "log_freq": TRAIN_LOG_FREQ,
+           "step_check": step_check(dev, card, cfg, root)}
+
+    # the command: from scratch, bf16, frames cached, pose validation
+    out = os.path.join(tmp, "runs")
+    run = os.path.join(out, "lmo_ape")
+    args = ["train", "--cfg", cfg_path, "--obj_name", "ape",
+            "--from_scratch", "--bf16", "--cache_images", "--log_freq",
+            str(TRAIN_LOG_FREQ), "--output_dir", out, "--device", str(dev)]
+    minimal_epnp_hypotheses.launches = 0          # the training path's run
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    rc = cli.main(args + ["--max_steps", str(TRAIN_STEPS)])
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = minimal_epnp_hypotheses.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(rc == 0, f"train returned {rc}")
+    rows = _metrics_rows(run)
+    losses = [r["value"] for r in rows
+              if r["tag"] == "train/step_loss_total"]
+    check(len(losses) == TRAIN_STEPS, "not every step's loss was logged")
+    check(all(np.isfinite(r["value"]) for r in rows
+              if r["tag"].startswith("train/")), "a logged loss is not finite")
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    recalls = [r["value"] for r in rows if r["tag"] == "val/ADD_recall_0.1d"]
+    timing = {r["tag"][len("timing/"):]: r["value"] for r in rows
+              if r["tag"].startswith("timing/")}
+    n_val = len(recalls)
+    val_batches = -(-TREE_FRAMES // 16)
+    steps_dir = os.path.join(run, "checkpoints", "steps")
+    best_dir = os.path.join(run, "checkpoints", "best")
+    rolling = sorted(os.listdir(steps_dir))
+    best = sorted(f for f in os.listdir(best_dir) if f.endswith(".pth")) \
+        if os.path.isdir(best_dir) else []
+    train_s = timing["fit_s"] - timing["val_s"] - timing["log_s"]
+    step_ms = 1e3 * train_s / timing["steps"]
+    log(f"[train] `train --from_scratch --bf16 --cache_images`, b"
+        f"{TRAIN_BATCH}, {TRAIN_STEPS} steps: loss_total mean of the first "
+        f"20 steps {first:.4f}, of the last 20 {last:.4f} (ratio "
+        f"{last / first:.3f}); val ADD recall@0.1d at steps "
+        f"{', '.join(str(TRAIN_LOG_FREQ * (i + 1)) for i in range(n_val))}: "
+        f"{', '.join(f'{r:.4f}' for r in recalls)}; {launches} kernel "
+        f"launches in validation ({n_val} x {val_batches} batches of 16); "
+        f"rolling {rolling}, best {best}; on {card}")
+    log(f"[train] in the command ({wall:.1f} s wall, fit {timing['fit_s']:.1f}"
+        f" s): {step_ms:.1f} ms a step ({TRAIN_BATCH / step_ms * 1e3:.1f} "
+        f"samples/s) over the steps' share; waiting for a batch "
+        f"{timing['wait_s']:.2f} s ({100 * timing['wait_s'] / timing['fit_s']:.1f}"
+        f"% of fit, {100 * timing['wait_s'] / train_s:.1f}% of the steps' "
+        f"share); issuing steps {timing['step_s']:.2f} s; logs and "
+        f"checkpoint copies {timing['log_s']:.2f} s; validation "
+        f"{timing['val_s']:.2f} s ({timing['val_s'] / max(n_val, 1):.2f} s "
+        f"each over {TREE_FRAMES} frames); peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated); on {card}")
+    check(last < first, "the loss did not fall")
+    check(n_val >= 2, "pose validation ran fewer than twice")
+    check(launches >= n_val * val_batches,
+          "validation did not launch the EPnP kernel on every batch")
+    check(len(rolling) == 3, "not 3 rolling checkpoints")
+    check(len(best) == 1 or max(recalls) == 0.0,
+          "a validation raised recall but no best checkpoint was kept")
+    rec.update(wall_s=wall, launches=launches, losses_first20=first,
+               losses_last20=last, recalls=recalls, timing=timing,
+               step_ms=step_ms, peak_bytes=peak, rolling=rolling, best=best)
+
+    # `test` loads the best checkpoint strictly (the newest rolling one
+    # when no validation rose above recall 0)
+    if best:
+        ckpt = os.path.join(best_dir, best[0])
+    else:
+        log("[train] no validation rose above recall 0: no best "
+            "checkpoint; `test` takes the newest rolling one")
+        ckpt = os.path.join(steps_dir, f"step_{TRAIN_STEPS}.pth")
+    test_out = os.path.join(tmp, "test_trained")
+    rc = cli.main(["test", "--cfg", os.path.join(root, "lmo_ape.txt"),
+                   "--obj_name", "ape", "--ckpt_file", ckpt, "--batch_size",
+                   "32", "--output_dir", test_out, "--device", str(dev)])
+    check(rc == 0, f"test of the trained checkpoint returned {rc}")
+    (run_dir,) = os.listdir(test_out)
+    with open(os.path.join(test_out, run_dir, "pose_result_bop",
+                           "lmo_ape.csv")) as f:
+        n_rows = len(f.read().splitlines()) - 1
+    with open(os.path.join(test_out, run_dir, "ADD_result.txt")) as f:
+        metrics = {k: float(v) for k, v in
+                   (ln.split() for ln in f.read().splitlines())}
+    check(n_rows == TREE_FRAMES, f"test wrote {n_rows} CSV rows")
+    log(f"[train] `test --ckpt_file {os.path.relpath(ckpt, run)}`: "
+        f"{n_rows} CSV rows, ADD recall@0.1d "
+        f"{metrics['ADD_recall_0.1d']:.4f} (not gated: {TRAIN_STEPS} steps "
+        f"from scratch)")
+    rec["test_recall"] = metrics["ADD_recall_0.1d"]
+
+    # resume: load_checkpoint = True, 10 more steps
+    resume_cfg = os.path.join(root, "lmo_ape_resume.txt")
+    with open(cfg_path) as f, open(resume_cfg, "w") as g:
+        g.write(f.read() + "load_checkpoint = True\n")
+    args[2] = resume_cfg
+    rc = cli.main(args + ["--max_steps", "10"])
+    check(rc == 0, f"the resumed train returned {rc}")
+    steps = [r["step"] for r in _metrics_rows(run)
+             if r["tag"] == "train/step_loss_total"][TRAIN_STEPS:]
+    check(steps == list(range(TRAIN_STEPS + 1, TRAIN_STEPS + 11))
+          and os.path.exists(os.path.join(
+              steps_dir, f"step_{TRAIN_STEPS + 10}.pth")),
+          f"the resume ran steps {steps[:1]}..{steps[-1:]}")
+    log(f"[train] resumed at step {TRAIN_STEPS}, ran steps {steps[0]}-"
+        f"{steps[-1]}, rolling {sorted(os.listdir(steps_dir))}")
+
+    # the step alone: frames collated once and served from memory, bf16
+    # and f32 (PyTorch's default TF32: cuDNN on, matmul off); then the
+    # stream of frames read and decoded per draw
+    rec["timed"] = {}
+    for name, bf16, cache in (("bf16", True, True), ("f32", False, True),
+                              ("bf16_stream", True, False)):
+        res = trainer.build_train_setup(
+            cfg, "ape", os.path.join(tmp, f"timed_{name}"),
+            pretrained_backbone=None, bf16=bf16, cache_images=cache,
+            log_freq=TRAIN_LOG_FREQ, device=dev)
+        try:
+            if cache:
+                batches = [next(res.train_iter) for _ in range(4)]
+                res.train_iter.close()
+                res.train_iter = _Batches(batches)
+            n, warm = (30, 10) if cache else (20, 3)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = {}
+            trainer.timed_steps(res, n_steps=n, warm=warm, timing=t)
+            t["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            t["busy_share"], t["kernels_a_step"] = busy_share(
+                lambda: trainer.timed_steps(res, n_steps=5, warm=0), 5)
+        finally:
+            res.train_iter.close()
+            res.ckpt.close()
+            res.logger.close()
+        wait = t["wait_s"] / (t["host_ms"] * n / 1e3)
+        busy = ("not measured (no device kernels seen)"
+                if t["busy_share"] is None else
+                f"{100 * t['busy_share']:.1f}% ({t['kernels_a_step']:.0f} "
+                f"kernels a step)")
+        log(f"[train] timed_steps {name} ("
+            + ("frames from memory" if cache else
+               "frames read per draw, 8 reading threads")
+            + f"), b{TRAIN_BATCH}, {n} steps after {warm}: "
+            f"{t['host_ms']:.2f} ms a step host clock, "
+            f"{t.get('event_ms', float('nan')):.2f} ms CUDA events, "
+            f"{TRAIN_BATCH / t['host_ms'] * 1e3:.1f} samples/s; waiting for "
+            f"a batch {100 * wait:.1f}% of the time; device busy over 5 "
+            f"more steps under torch.profiler {busy}; peak device memory "
+            f"{t['peak_bytes'] / 2 ** 30:.2f} GiB; on {card}")
+        rec["timed"][name] = dict(t, wait_share=wait)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase 8 took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def build_baseline(path):
     """Compile another version of csrc/epnp_minimal.cu with the port's
     flags into the build directory; its zp_epnp_minimal entry point."""
@@ -665,16 +1071,19 @@ def main(argv=None) -> int:
                     default="K", help="the baseline's third argument: Ks "
                     "[N, 3, 3] or [N, 4] (fx, fy, cx, cy)")
     ap.add_argument("--write-tree", metavar="DIR",
-                    help="write the runner phase's BOP tree (and its "
-                    "config DIR/lmo_ape.txt) on the CPU, and stop")
+                    help="write the runner and training phases' BOP tree "
+                    "(and the configs DIR/lmo_ape.txt, "
+                    "DIR/lmo_ape_train.txt) on the CPU, and stop")
     opts = ap.parse_args(argv)
     if opts.write_tree:
         sys.path.insert(0, HERE)
         cfg_path, _, _ = write_tree(os.path.abspath(opts.write_tree))
         log(f"[tree] {cfg_path}")
+        log(f"[tree] {write_train_split(os.path.abspath(opts.write_tree))}")
         return 0
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -735,10 +1144,11 @@ def main(argv=None) -> int:
     # ---- 3. kernel vs plain version on minimal sets --------------------
     rng = np.random.default_rng(5)
     max_abs = 0.0
-    # every N the driven paths launch: b32 (4096), the runner's escalated
-    # stage 2 at b32 (8192), b256 (32768), [main]'s escalated b256 (65536)
-    for n, noise in ((4096, 0.0), (4096, 0.5), (8192, 0.5), (32768, 0.5),
-                     (65536, 0.5)):
+    # every N the driven paths launch: the training path's validation at
+    # b16 (2048), b32 (4096), the runner's escalated stage 2 at b32
+    # (8192), b256 (32768), [main]'s escalated b256 (65536)
+    for n, noise in ((2048, 0.5), (4096, 0.0), (4096, 0.5), (8192, 0.5),
+                     (32768, 0.5), (65536, 0.5)):
         pw, uv, R0 = minimal_sets(n, noise, rng)
         a = torch.from_numpy(pw).to(dev)
         b = torch.from_numpy(uv).to(dev)
@@ -1091,9 +1501,10 @@ def main(argv=None) -> int:
     log("[timing] library_ms: null -- no single PyTorch call computes a "
         "minimal-set EPnP")
 
-    # ---- 7. the test runner --------------------------------------------
+    # ---- 7. the test runner, 8. the training path ---------------------
     with tempfile.TemporaryDirectory() as tmp:
         runner = runner_phase(dev, card, tmp)
+        train = train_phase(dev, card, tmp)
 
     main_n = 256 * cfg.n_hypotheses                  # the b256 stage
     rec = {"name": "minimal_epnp_hypotheses", "route": "cuda",
@@ -1110,10 +1521,12 @@ def main(argv=None) -> int:
            "launches_by_path": {
                "main": main_launches,
                **{f"runner_{k}": v["launches"]
-                  for k, v in runner["runs"].items()}},
-           "runner": runner, "card": card}
+                  for k, v in runner["runs"].items()},
+               "train": train["launches"]},
+           "runner": runner, "train": train, "card": card}
     if ab:
         rec["ab"] = {str(n): v for n, v in ab.items()}
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [rec]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,8 +1,8 @@
 """Import hygiene of the PyTorch port.
 
 The port and `chip_smoke.py` must run where JAX, cv2 and PIL are not
-installed: they import neither `jax`, `flax`, `ml_dtypes`, `cv2`, `PIL`
-nor any `zebrapose_tpu` module. The check
+installed: they import neither `jax`, `flax`, `optax`, `orbax`,
+`ml_dtypes`, `cv2`, `PIL` nor any `zebrapose_tpu` module. The check
 runs in a subprocess, because this test process already imported JAX
 (tests/conftest.py). Also: entry points refuse to fall back to the CPU,
 and importing the port leaves the TF32 switches at PyTorch's defaults.
@@ -29,7 +29,8 @@ mods = [m.name for m in pkgutil.walk_packages(zebrapose_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke  # noqa: F401  (its import closure; main() does not run)
-roots = ("jax", "flax", "ml_dtypes", "cv2", "PIL", "zebrapose_tpu")
+roots = ("jax", "flax", "optax", "orbax", "ml_dtypes", "cv2", "PIL",
+         "zebrapose_tpu")
 bad = sorted(m for m in sys.modules
              if m in roots or m.startswith(tuple(r + "." for r in roots)))
 print(json.dumps({"modules": mods, "bad": bad,
@@ -62,7 +63,9 @@ def test_port_imports_no_jax_in_subprocess():
                 "eval.evaluate", "data.png", "config", "data.dataset_info",
                 "data.bop_io", "data.detections", "data.bop_writer",
                 "utils.logging", "utils.profiling", "eval.runner", "cli",
-                "__main__"}
+                "__main__", "models.losses", "ops.augment", "train.state",
+                "train.train_step", "train.checkpoints", "train.trainer",
+                "parallel.mesh"}
     assert {"zebrapose_tpu_torch." + m for m in expected} <= \
         set(res["modules"])
     # the port does not touch the TF32 switches: float32 matmuls stay
@@ -72,7 +75,8 @@ def test_port_imports_no_jax_in_subprocess():
 
 
 def test_port_sources_name_no_jax():
-    pat = re.compile(r"^\s*(import|from) (jax|flax|ml_dtypes|cv2|PIL)\b"
+    pat = re.compile(r"^\s*(import|from) "
+                     r"(jax|flax|optax|orbax|ml_dtypes|cv2|PIL)\b"
                      r"|zebrapose_tpu\.", re.M)
     hits = []
     for path in _port_sources():
@@ -102,6 +106,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                              np.array([[0, 0, 8, 8]], np.int32),
                              np.eye(3, dtype=np.float32)[None], bbox_size=4,
                              generator=torch.Generator())
+    # training: the setup and the command
+    from zebrapose_tpu_torch import cli
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.train.trainer import build_train_setup
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_train_setup(ZebraConfig(), "ape", "unused",
+                          pretrained_backbone=None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["train", "--cfg", "unused.txt", "--obj_name", "ape",
+                  "--from_scratch"])
     # CPU work must be asked for: device="cpu" builds the step
     make_eval_step(lambda b: b, lut, 64, 32, 2, 2, "crop_square_resize",
                    "BCE", PnPConfig(), device="cpu")

@@ -399,8 +399,12 @@ def test_unported_options_raise(bop_tree, tmp_path, what):
         kw["variant"] = "v3"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "training_dataset":
-            CropDatasetHost("", "test", [], [], [], [], [], [],
-                            is_train=True)
+            # the training branch is ported; the pbr training splits'
+            # .jpg frames are not
+            CropDatasetHost("", "train_pbr", [str(tmp_path / "0.jpg")],
+                            [[""]], [[""]], [None],
+                            [{"bbox_visib": [0, 0, 8, 8]}],
+                            [{"cam_K": K_LIST}], is_train=True).collate([0])
         else:
             run_test(cfg, "ape", ckpt, str(tmp_path / "out"), **kw)
 

@@ -1,15 +1,21 @@
-"""Command line of the port: the reference's test.py entry point.
+"""Command line of the port: the reference's train and test entry points.
 
+  python -m zebrapose_tpu_torch train --cfg cfg.txt --obj_name ape \
+      [--from_scratch | --pretrained_backbone resnet34.pth] [--bf16] \
+      [--max_steps N] [--log_freq N] [--cache_images] [--device cuda|cpu]
   python -m zebrapose_tpu_torch test --cfg cfg.txt --obj_name ape \
       --ckpt_file <.npz or .pth> [--batch_size N] [--escalate_h 256] \
       [--device cuda|cpu]
   python -m zebrapose_tpu_torch merge-csv a.csv b.csv --out all.csv
 
-The flags are those of `python -m zebrapose_tpu test` plus `--device`
-(default cuda; without CUDA the command fails unless `--device cpu` is
-given). The config file is the reference's flat `key = value` format.
-The other commands of the JAX package's CLI are not ported yet
-(ROADMAP.md).
+The flags are those of `python -m zebrapose_tpu train` / `test` plus
+`--device` (default cuda; without CUDA a command fails unless `--device
+cpu` is given). `train` writes `<output_dir>/<dataset>_<obj>/
+checkpoints/` (reference-format .pth files that `test` loads) and
+`logs/metrics.jsonl`. Its `--qat`, `--multihost` and `--input_mode
+prefetch | device_cache` raise NotImplementedError. The config file is
+the reference's flat `key = value` format. The other commands of the
+JAX package's CLI are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,9 +35,98 @@ def _pnp_cfg_from_args(args):
     return PnPConfig(**kw)
 
 
+_UNPORTED = "is not ported yet (see ROADMAP.md, queue A)"
+
+
+def _add_train(sub):
+    p = sub.add_parser("train", help="train one object (train_v2)")
+    p.add_argument("--cfg", required=True, help="reference-format config")
+    p.add_argument("--obj_name", required=True)
+    p.add_argument("--output_dir", default="runs")
+    p.add_argument("--variant", default="v2", choices=["v1", "v2", "v3"])
+    p.add_argument("--pretrained_backbone", default="auto",
+                   help="torchvision resnet34 .pth; 'auto' searches known "
+                        "locations and fails if absent (the reference "
+                        "always trains from ImageNet weights)")
+    p.add_argument("--from_scratch", action="store_true",
+                   help="train from random init")
+    p.add_argument("--gamma", type=float, default=1.0,
+                   help="StepLR decay per 10 validation cadences (1.0 = "
+                        "train_v2/v5, 0.7 = train_v3)")
+    p.add_argument("--val_mode", default="pose", choices=["pose", "loss"],
+                   help="pose = decode->PnP->recall with best checkpoint "
+                        "(train_v2); loss = loss-only validation (train_v6)")
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--log_freq", type=int, default=1000)
+    p.add_argument("--profile", default=None,
+                   help="write a torch.profiler Chrome trace (trace.json) "
+                        "to this dir")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 autocast of the forward (parameters, "
+                        "optimizer and losses stay f32)")
+    p.add_argument("--qat", action="store_true",
+                   help="quantization-aware training (not ported yet)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-host training (not ported yet)")
+    p.add_argument("--input_mode", default="stream",
+                   choices=["stream", "prefetch", "device_cache"],
+                   help="stream = host MixedBatchIterator; prefetch and "
+                        "device_cache are not ported yet")
+    p.add_argument("--cache_images", action="store_true",
+                   help="hold decoded full-res frames in host RAM")
+    p.add_argument("--accum_steps", type=int, default=1,
+                   help="gradient accumulation: split each optimizer "
+                        "step's batch (cfg.batch_size) into this many "
+                        "micro-batches")
+    p.add_argument("--gt_labels", default="v2", choices=["v1", "v2"],
+                   help="GT label directory: v2 = <split>_GT_v2, v1 = "
+                        "<split>_GT")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (cuda, cuda:N or cpu)")
+
+
+def _train(args) -> int:
+    if args.qat:
+        raise NotImplementedError("--qat " + _UNPORTED)
+    if args.multihost:
+        raise NotImplementedError("--multihost " + _UNPORTED)
+    if args.input_mode != "stream":
+        raise NotImplementedError(f"--input_mode {args.input_mode} "
+                                  + _UNPORTED)
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.train.trainer import build_train_setup, fit
+    from zebrapose_tpu_torch.utils.device import resolve_device
+    from zebrapose_tpu_torch.utils.profiling import profile_trace
+
+    device = resolve_device(args.device)
+    cfg = ZebraConfig.from_file(args.cfg)
+    out = os.path.join(args.output_dir, f"{cfg.dataset_name}_{args.obj_name}")
+    res = build_train_setup(
+        cfg, args.obj_name, out, variant=args.variant,
+        pretrained_backbone=(None if args.from_scratch
+                             else args.pretrained_backbone),
+        bf16=args.bf16, gamma=args.gamma, log_freq=args.log_freq,
+        cache_images=args.cache_images, accum_steps=args.accum_steps,
+        gt_dir_suffix="_GT" if args.gt_labels == "v1" else "_GT_v2",
+        device=device)
+    timing = {}
+    try:
+        with profile_trace(args.profile):
+            best = fit(res, log_freq=args.log_freq, max_steps=args.max_steps,
+                       val_mode=args.val_mode, timing=timing)
+        # where this run's time went, in seconds (fit's stages)
+        res.logger.log(res.state.step, timing, prefix="timing/")
+    finally:
+        res.ckpt.close()
+        res.logger.close()
+    print(f"best val recall: {best}")
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="zebrapose_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+    _add_train(sub)
 
     p_test = sub.add_parser("test", help="evaluate one object (test.py)")
     p_test.add_argument("--cfg", required=True, help="reference-format config")
@@ -72,6 +167,8 @@ def main(argv=None):
 
     args = parser.parse_args(argv)
 
+    if args.command == "train":
+        return _train(args)
     if args.command == "merge-csv":
         from zebrapose_tpu_torch.data.bop_writer import merge_csv
         merge_csv(args.csvs, args.out)

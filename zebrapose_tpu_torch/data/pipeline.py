@@ -1,22 +1,27 @@
-"""Inference preprocessing on the device: raw frames -> model batch.
+"""Preprocessing on the device (raw frames -> model batch) and the host
+dataset that feeds it.
 
-Port of the `is_train=False` branches of
-`zebrapose_tpu/data/pipeline.py::preprocess_batch`: crop + resize (linear
-for the BGR frame, nearest for GT label and masks), ImageNet
-normalization, label RGB -> class id -> code planes. BGR channel order
-is kept on purpose: the reference normalizes cv2's BGR frames with RGB
-ImageNet statistics, and trained checkpoints expect exactly that.
+Port of `zebrapose_tpu/data/pipeline.py`. `preprocess_batch`: crop +
+resize (linear for the BGR frame, nearest for GT label and masks), in
+training the GDR-Net color augmentation of the f32 crop
+(`ops/augment.py`), ImageNet normalization, label RGB -> class id ->
+code planes. BGR channel order is kept on purpose: the reference
+normalizes cv2's BGR frames with RGB ImageNet statistics, and trained
+checkpoints expect exactly that.
 
-The host dataset `CropDatasetHost` is the evaluation branch of its JAX
-counterpart: byte I/O and integer bbox bookkeeping on the host, nothing
-per-pixel, PNGs decoded by the port's own reader (`data/png.py`) where
-the JAX package calls cv2. The training branch (color augmentation,
-jittered bboxes, the batch iterators) is not ported yet (ROADMAP.md).
+`CropDatasetHost` does byte I/O and integer bbox bookkeeping on the
+host (evaluation bboxes, or in training GT bboxes jittered per draw),
+nothing per-pixel, PNGs decoded by the port's own reader
+(`data/png.py`) where the JAX package calls cv2. `MixedBatchIterator`
+mixes two training splits with a prefetch thread and a reading pool.
+The device-resident input modes (`DeviceDatasetCache`,
+`DevicePrefetchIterator`) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import threading
 from typing import Dict, Optional, Sequence
 
@@ -30,7 +35,13 @@ from zebrapose_tpu_torch.codec.surface_code import (
     rgb_to_class_id,
 )
 from zebrapose_tpu_torch.models.zebra_net import normalize_image
+from zebrapose_tpu_torch.ops.augment import (
+    AugmentDraws,
+    augment_batch,
+    draw_augment,
+)
 from zebrapose_tpu_torch.ops.roi import (
+    augment_bbox,
     extract_roi_affine,
     extract_roi_clipped,
     extract_roi_square,
@@ -54,7 +65,12 @@ def _roi(imgs, param, crop, method, interpolation):
 def preprocess_batch(raw: Dict[str, torch.Tensor], crop_img: int = 256,
                      crop_gt: int = 128, base: int = 2, n_bits: int = 16,
                      resize_method: str = "crop_square_resize",
-                     include_gt: bool = True) -> Dict[str, torch.Tensor]:
+                     include_gt: bool = True, is_train: bool = False,
+                     use_pepper_salt: bool = False,
+                     use_motion_blur: bool = False,
+                     generator: Optional[torch.Generator] = None,
+                     draws: Optional[AugmentDraws] = None
+                     ) -> Dict[str, torch.Tensor]:
     """raw: {"rgb" [N,H,W,3] u8 BGR, "label" [N,H,W,3] u8, "mask"
     [N,H,W] u8, "entire_mask" [N,H,W] u8, "roi_param" ([N,5] int square
     | [N,4] int clipped | [N,3] f32 affine), "valid" [N] f32}, tensors
@@ -64,10 +80,20 @@ def preprocess_batch(raw: Dict[str, torch.Tensor], crop_img: int = 256,
     "mask", "entire_mask" [N,crop_gt,crop_gt] and "code"
     [N,crop_gt,crop_gt,n_bits]. The u8 pixels are gathered as they are
     and widened by the interpolation weights (same values as widening
-    first).
+    first). is_train augments the f32 crop before normalization with
+    `draws`, or with values drawn from `generator` (a torch.Generator
+    on the batch's device).
     """
     p = raw["roi_param"]
     roi_rgb = _roi(raw["rgb"], p, crop_img, resize_method, "linear")
+    if is_train:
+        if draws is None:
+            if generator is None:
+                raise ValueError("a training batch needs a generator or "
+                                 "injected draws")
+            draws = draw_augment(generator, roi_rgb.shape[0], crop_img,
+                                 crop_img, use_pepper_salt, use_motion_blur)
+        roi_rgb = augment_batch(roi_rgb, draws)
     image = normalize_image(roi_rgb / 255.0)
     valid = raw["valid"].to(torch.float32)[:, None, None]
     if not include_gt:
@@ -94,13 +120,15 @@ def preprocess_batch(raw: Dict[str, torch.Tensor], crop_img: int = 256,
 # ---------------------------------------------------------------------------
 
 class CropDatasetHost:
-    """Host-side sample provider for one object, evaluation only.
+    """Host-side sample provider for one object.
 
-    Port of the `is_train=False` contract of
-    `zebrapose_tpu/data/pipeline.py::CropDatasetHost`: raw
+    Port of `zebrapose_tpu/data/pipeline.py::CropDatasetHost`: raw
     full-resolution arrays + bbox params per sample (the crop happens on
-    the device), the same keys, dtypes and bytes. `gt_dir_suffix`
-    selects `<split>_GT` (v1 labels) vs `<split>_GT_v2`.
+    the device), the same keys, dtypes and bytes. In training
+    (`is_train`) each draw jitters the GT bbox (`augment_bbox`) with a
+    per-sample seed taken from `default_rng(seed)` under a lock, as in
+    JAX. `gt_dir_suffix` selects `<split>_GT` (v1 labels) vs
+    `<split>_GT_v2`.
     """
 
     def __init__(self, dataset_dir: str, data_folder: str,
@@ -117,12 +145,9 @@ class CropDatasetHost:
                  gt_dir_suffix: str = "_GT_v2",
                  detect_bboxes: Optional[Sequence] = None,
                  detect_segmentations: Optional[Sequence] = None,
+                 seed: int = 0,
                  cache_images: bool = False,
                  roi_slice: bool = False):
-        if is_train:
-            raise NotImplementedError(
-                "CropDatasetHost(is_train=True) is not ported yet (see "
-                "ROADMAP.md, queue A: training)")
         self.dataset_dir = dataset_dir
         self.data_folder = data_folder
         self.rgb_files = list(rgb_files)
@@ -131,7 +156,7 @@ class CropDatasetHost:
         self.gts = list(gts)
         self.gt_infos = list(gt_infos)
         self.cam_params = list(cam_params)
-        self.is_train = False
+        self.is_train = is_train
         self.crop_size_img = crop_size_img
         self.crop_size_gt = crop_size_gt
         self.padding_ratio = padding_ratio
@@ -139,11 +164,16 @@ class CropDatasetHost:
         self.gt_dir_suffix = gt_dir_suffix
         self.detect_bboxes = detect_bboxes
         self.detect_segmentations = detect_segmentations
+        self.rng = np.random.default_rng(seed)
+        self._rng_lock = threading.Lock()
         # opt-in decoded-image RAM cache (~2.4 MB per 480x640 sample)
         self._cache: Optional[dict] = {} if cache_images else None
         self._cache_lock = threading.Lock()
         # opt-in: ship only each frame's clamped square-bbox bytes (see
         # _slice_roi)
+        if roi_slice and is_train:
+            raise ValueError("roi_slice is a serving mode "
+                             "(is_train=False only)")
         if roi_slice and resize_method != "crop_square_resize":
             raise NotImplementedError(
                 "roi_slice supports crop_square_resize only")
@@ -205,7 +235,7 @@ class CropDatasetHost:
             return m if m is not None else np.zeros((h, w), np.uint8)
 
         mask = _read_mask(self.mask_visib_files[idx][0])
-        if (self.detect_segmentations is not None
+        if (not self.is_train and self.detect_segmentations is not None
                 and self.detect_segmentations[idx] is not None):
             # Mask-RCNN variant: the detector's RLE replaces the visible
             # mask (bop_dataset_pytorch_mask_rcnn.py:270-287)
@@ -241,8 +271,8 @@ class CropDatasetHost:
 
     def get_params(self, idx: int,
                    im_shape: tuple) -> Dict[str, np.ndarray]:
-        """Pose/K plus the bbox -> roi param + final bbox. No pixel
-        access."""
+        """Pose/K plus the bbox (in training freshly jittered) -> roi
+        param + final bbox. No pixel access."""
         gt = self.gts[idx]
         if gt is not None:
             R = np.asarray(gt["cam_R_m2c"], np.float64).reshape(3, 3)
@@ -252,7 +282,17 @@ class CropDatasetHost:
             t = np.zeros(3)
         K = np.asarray(self.cam_params[idx]["cam_K"],
                        np.float64).reshape(3, 3)
-        bbox, valid = self._eval_bbox(idx)
+        if self.is_train:
+            valid = 1.0
+            # a seed per sample: get_raw runs on a thread pool and numpy
+            # Generators are not thread-safe
+            with self._rng_lock:
+                sample_seed = int(self.rng.integers(0, 2 ** 63))
+            bbox = augment_bbox(np.asarray(self.gt_infos[idx]["bbox_visib"]),
+                                self.padding_ratio,
+                                np.random.default_rng(sample_seed))
+        else:
+            bbox, valid = self._eval_bbox(idx)
         param, fb = self._roi_param(bbox, im_shape)
         return {"roi_param": param, "final_bbox": fb,
                 "R": R.astype(np.float32), "t": t.astype(np.float32),
@@ -319,3 +359,80 @@ class CropDatasetHost:
         else:
             rows = [self.get_raw(i) for i in indices]
         return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+class MixedBatchIterator:
+    """Endless training batches mixing two splits (the reference
+    concatenates a batch of each of its two DataLoaders every step,
+    train_v2.py:228-244): `second_dataset_ratio` of each batch from ds2
+    when it has samples. A prefetch thread collates `prefetch` batches
+    ahead; samples are read on a pool of `num_workers` threads (PNG
+    decode releases the interpreter lock in zlib; 0 = in the prefetch
+    thread). Indices come from `default_rng(seed)`, as in JAX."""
+
+    def __init__(self, ds1: CropDatasetHost,
+                 ds2: Optional[CropDatasetHost],
+                 batch_size: int, second_dataset_ratio: float = 0.75,
+                 seed: int = 0, prefetch: int = 2, num_workers: int = 8):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.ds1, self.ds2 = ds1, ds2
+        if ds2 is not None and len(ds2) > 0:
+            self.n2 = int(batch_size * second_dataset_ratio)
+        else:
+            self.n2 = 0
+            self.ds2 = None
+        self.n1 = batch_size - self.n2
+        self.rng = np.random.default_rng(seed)
+        self._pool = ThreadPoolExecutor(max_workers=num_workers) \
+            if num_workers > 0 else None
+        self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _draw(self, ds, n):
+        return self.rng.integers(0, len(ds), size=n)
+
+    def _put(self, item):
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=1.0)
+                return
+            except queue.Full:
+                continue
+
+    def _worker(self):
+        try:
+            while not self._stop.is_set():
+                b1 = self.ds1.collate(self._draw(self.ds1, self.n1),
+                                      executor=self._pool)
+                if self.ds2 is not None:
+                    b2 = self.ds2.collate(self._draw(self.ds2, self.n2),
+                                          executor=self._pool)
+                    b1 = {k: np.concatenate([b1[k], b2[k]]) for k in b1}
+                self._put(b1)
+        except BaseException as e:  # handed to the consumer, re-raised
+            self._put(e)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        item = self._q.get()
+        if isinstance(item, BaseException):
+            raise item
+        return item
+
+    def close(self):
+        """Stop the prefetch thread before the pool shuts down (the other
+        order makes an in-flight collate raise in the thread)."""
+        self._stop.set()
+        try:  # unblock a producer stuck on a full queue
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=10.0)
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)

@@ -1,9 +1,12 @@
-"""JAX ZebraPoseNet variables -> the port's state dict.
+"""JAX ZebraPoseNet variables -> the port's state dict; ImageNet
+backbone weights -> the port's model.
 
 The port's copy of the mapping in `zebrapose_tpu/models/convert_torch.py`
 (`_walk_reference`, the export mapping and `_CONCAT_ALIASES`), without
 flax. The port's module names are the reference checkpoints' keys, so
 the result is also a reference-format state dict.
+`load_torchvision_resnet34` is the counterpart of
+`convert_torchvision_resnet34` + `merge_pretrained` (:306-344).
 
 Conventions (inverse of the JAX importer):
   * conv kernel  [kh, kw, in, out] -> weight [out, in, kh, kw]
@@ -118,3 +121,35 @@ def variables_to_state_dict(variables: Dict[str, Any], variant: str = "v2"
             eb.sd[dst + k[len(src):]] = eb.sd[k]
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in eb.sd.items()}
+
+
+# torchvision resnet34 key prefix -> the port's module (the stem and the
+# first two stages, which the reference loads pretrained,
+# model/resnet.py:184-199)
+_TORCHVISION_PREFIXES = (("conv1.", "net.resnet.resnet.0."),
+                         ("bn1.", "net.resnet.resnet.1."),
+                         ("layer1.", "net.resnet.resnet.4."),
+                         ("layer2.", "net.resnet.resnet.5."))
+
+
+def load_torchvision_resnet34(model: torch.nn.Module,
+                              sd: Dict[str, Any]) -> None:
+    """Copy a torchvision resnet34 state dict's stem, layer1 and layer2
+    (conv weights, BN weight / bias / running statistics) into
+    ZebraPoseNet `model` in place, with shape checks; the rest of the
+    model keeps its initialization. The skip-tap aliases
+    (`_CONCAT_ALIASES`) share these modules, so they follow."""
+    own = model.state_dict()
+    with torch.no_grad():
+        for src, dst in _TORCHVISION_PREFIXES:
+            for key in [k for k in own if k.startswith(dst)
+                        and not k.endswith("num_batches_tracked")]:
+                theirs = src + key[len(dst):]
+                if theirs not in sd:
+                    raise KeyError(f"pretrained state dict lacks {theirs}")
+                value = torch.as_tensor(np.asarray(sd[theirs]))
+                if tuple(value.shape) != tuple(own[key].shape):
+                    raise ValueError(
+                        f"shape mismatch at {theirs}: {tuple(value.shape)} "
+                        f"vs {tuple(own[key].shape)}")
+                own[key].copy_(value)

@@ -38,10 +38,33 @@ class TorchConvTranspose(nn.ConvTranspose2d):
 
 
 class TorchBatchNorm(nn.BatchNorm2d):
-    """nn.BatchNorm2d with eps 1e-5 and momentum 0.1 (flax 0.9)."""
+    """nn.BatchNorm2d with eps 1e-5 and momentum 0.1 (flax 0.9).
+
+    In training, the running variance follows flax, the port's
+    reference: it moves toward the biased batch variance (torch's own
+    update uses the unbiased one, n/(n-1) larger). Both normalize the
+    batch with the biased variance, so outputs and gradients are
+    torch's. The fused kernel updates a copy of the [C] buffer, from
+    which the buffer is set. Eval mode is nn.BatchNorm2d's."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        # autograd keeps the variance buffer the kernel got: hand it a
+        # copy, so the correction below does not touch a saved tensor
+        fused = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, fused, self.weight,
+                         self.bias, True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            # fused = (1-m) old + m var n/(n-1); flax's term is m var
+            keep = (1.0 - self.momentum) * self.running_var
+            self.running_var.copy_(keep + (fused - keep) * ((n - 1) / n))
+        return y
 
 
 def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:

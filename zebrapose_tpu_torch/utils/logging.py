@@ -1,16 +1,65 @@
-"""Evaluation run directories and console capture.
+"""Metrics logging, evaluation run directories and console capture.
 
-The port's copy of `prepare_eval_dir` and `TeeOutput` from
-`zebrapose_tpu/utils/logging.py` (the metrics logger belongs to the
-training slice).
+The port's copy of `MetricsLogger`, `prepare_eval_dir` and `TeeOutput`
+from `zebrapose_tpu/utils/logging.py`.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 import time
-from typing import Dict
+from typing import Dict, Sequence
+
+
+class MetricsLogger:
+    """Scalars to `<log_dir>/metrics.jsonl` (one {"step", "tag",
+    "value", "ts"} row per scalar) and to stdout; also to TensorBoard
+    when tensorboardX imports. The reference prints and writes
+    TensorBoard scalars (train_v2.py:271-336)."""
+
+    def __init__(self, log_dir: str, also_stdout: bool = True):
+        os.makedirs(log_dir, exist_ok=True)
+        self.path = os.path.join(log_dir, "metrics.jsonl")
+        self._f = open(self.path, "a")
+        self.also_stdout = also_stdout
+        self._tb = None
+        try:
+            from tensorboardX import SummaryWriter  # optional
+            self._tb = SummaryWriter(log_dir)
+        except ImportError:
+            pass
+
+    def _row(self, step: int, tag: str, value: float, now: float) -> None:
+        self._f.write(json.dumps({"step": int(step), "tag": tag,
+                                  "value": float(value), "ts": now}) + "\n")
+        if self._tb is not None:
+            self._tb.add_scalar(tag, float(value), int(step))
+
+    def log(self, step: int, scalars: Dict[str, float],
+            prefix: str = "") -> None:
+        now = time.time()
+        for tag, value in scalars.items():
+            self._row(step, f"{prefix}{tag}", value, now)
+        self._f.flush()
+        if self.also_stdout:
+            msg = " ".join(f"{k}={float(v):.5g}" for k, v in scalars.items())
+            print(f"[step {step}] {prefix}{msg}", flush=True)
+
+    def log_series(self, tag: str, steps: Sequence[int],
+                   values: Sequence[float]) -> None:
+        """One row per step for `tag`, file only (the per-step losses
+        the reference prints, written once per log cadence)."""
+        now = time.time()
+        for s, v in zip(steps, values):
+            self._row(s, tag, v, now)
+        self._f.flush()
+
+    def close(self):
+        self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 def prepare_eval_dir(output_dir: str, config_items: Dict,
