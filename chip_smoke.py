@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's inference and training paths on one CUDA card.
+"""Drive the PyTorch port's inference, training and BOP paths on one card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline OLD.cu --baseline-intrinsics fxfycxcy
@@ -41,10 +41,23 @@ check exits non-zero. Phases:
                  one, a resume for 10 steps; ms a step (bf16, f32, and
                  streaming from PNG), the share spent waiting for a
                  batch, peak device memory
+  9. bop         the BOP-challenge path over phase 7's tree, which also
+                 holds analytic depth, a BOP19 target list and ~190
+                 synthetic detections (duplicates, background boxes, one
+                 under the threshold): `python -m zebrapose_tpu_torch
+                 vivo` at b32 (the kernel's launches counted), then
+                 `score-bop` on its CSV on the card (AR_vsd / mssd /
+                 mspd; VSD's depth renders on the host) against the
+                 port's own CPU scoring pair by pair and against the JAX
+                 package's AR; again with the sphere's continuous
+                 symmetry (314 transforms); one render of the host
+                 rasterizer against the written analytic depth; the
+                 time of each, split as the commands measure it
 
 `--write-tree DIR` writes phase 7's tree with phase 8's training split
-(and their configs) on the CPU and stops: the JAX package's `test`
-command runs on it for the reference recall.
+and phase 9's inputs (and their configs) on the CPU and stops: the JAX
+package's `test`, `vivo` and `score-bop` commands run on it for the
+reference recall and AR.
 
 `--baseline OLD.cu` also builds another version of
 `csrc/epnp_minimal.cu` with the same C interface and times it against
@@ -93,6 +106,18 @@ STEP_CHECK_BATCH = 8
 JAX_CPU_RECALL = {"plain": 0.7833333333333333,
                   "escalated": 0.7833333333333333}
 RECALL_SLACK = 0.10
+# the BOP-challenge phase: its detections' seed, the vivo batch, and the
+# JAX package's BOP19 scores on the same tree: `python -m zebrapose_tpu
+# vivo --cfg DIR/lmo_ape_vivo.txt --obj_name ape --ckpt_file
+# trained/rehearsal3_best.npz --batch_size 32`, then `python -m
+# zebrapose_tpu score-bop --csv <its CSV> --bop_path DIR --dataset lmo`,
+# with JAX_PLATFORMS=cpu, JAX 0.9.0 on an x86 host's CPU over
+# `--write-tree DIR` (190 instances, 160 solved).
+# The card's AR must reach it less AR_SLACK.
+VIVO_SEED, VIVO_BATCH = 6, 32
+JAX_CPU_BOP = {"AR": 0.8901111111111111, "AR_vsd": 0.8478333333333333,
+               "AR_mssd": 0.8441666666666666, "AR_mspd": 0.9783333333333333}
+AR_SLACK = 0.10
 
 # H100 peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # (FP32 non-tensor FLOP/s, HBM bytes/s)
@@ -341,22 +366,31 @@ def relief_scene(rng, B=8, G=64, bits=16):
     return masks, codes, lut_pts, lut_valid, bboxes, R_gt
 
 
-def pixel_rays():
-    """[480 * 640, 3] rays K^-1 (x, y, 1) of every pixel, row-major."""
-    ys, xs = np.mgrid[0:480, 0:640]
+def pixel_rays(offset=0.0):
+    """[480 * 640, 3] rays K^-1 (x + offset, y + offset, 1) of every
+    pixel, row-major (offset 0.5: through the pixel centres, the
+    rasterizer's convention)."""
+    ys, xs = np.mgrid[0:480, 0:640] + offset
     return np.stack([xs, ys, np.ones_like(xs)], -1).reshape(-1, 3) @ \
         np.linalg.inv(K_LMO.astype(np.float64)).T
+
+
+def sphere_hits(rays, t):
+    """Which rays hit the rehearsal sphere centred at camera point t,
+    and the ray parameter of each first hit ([P] bool, [P]; the depth in
+    mm, since the rays have z = 1; meaningless where a ray misses)."""
+    rr = (rays * rays).sum(-1)
+    dt = rays @ t
+    disc = dt * dt - rr * (t @ t - SPHERE_RADIUS ** 2)
+    hit = disc >= 0
+    return hit, (dt - np.sqrt(np.where(hit, disc, 0))) / rr
 
 
 def sphere_surface(rays, R, t):
     """Which rays hit the rehearsal sphere at pose (R, t), and each
     ray's first surface point in the model frame ([P] bool, [P, 3];
     the points of missing rays are meaningless)."""
-    rr = (rays * rays).sum(-1)
-    dt = rays @ t
-    disc = dt * dt - rr * (t @ t - SPHERE_RADIUS ** 2)
-    hit = disc >= 0
-    s = (dt - np.sqrt(np.where(hit, disc, 0))) / rr
+    hit, s = sphere_hits(rays, t)
     return hit, (s[:, None] * rays - t) @ R
 
 
@@ -420,10 +454,13 @@ def write_tree(root, n_frames=TREE_FRAMES, seed=TREE_SEED):
     """Write the runner phase's BOP tree under `root` with the port's
     own writers: lmo, object ape (id 1), `n_frames` 480x640 sphere
     frames whose rgb rows cycle through PNG filters 0-4, masks from the
-    hit mask, scene_camera / scene_gt / scene_gt_info, the UV-sphere
-    mesh (diameter 80), camera.json, the committed rehearsal LUT as
-    `models_GT_color/Class_CorresPoint000001.txt`, and a config file
-    `<root>/lmo_ape.txt`. Returns (config path, rgb frames, masks)."""
+    hit mask, depth (`write_depth`), scene_camera / scene_gt /
+    scene_gt_info, the UV-sphere mesh (diameter 80), camera.json, the
+    committed rehearsal LUT as
+    `models_GT_color/Class_CorresPoint000001.txt`, a config file
+    `<root>/lmo_ape.txt`, and the BOP-challenge phase's targets,
+    detections and config (`write_vivo_inputs`). Returns (config path,
+    rgb frames, masks)."""
     from zebrapose_tpu_torch.codec.lut import (
         CorrespondenceLUT,
         save_correspondence_lut,
@@ -478,6 +515,7 @@ def write_tree(root, n_frames=TREE_FRAMES, seed=TREE_SEED):
                       ("scene_gt_info", gti)):
         with open(os.path.join(scene, f"{name}.json"), "w") as f:
             json.dump(obj, f)
+    write_depth(scene, ts)
     cfg_path = os.path.join(root, "lmo_ape.txt")
     with open(cfg_path, "w") as f:
         f.write(f"bop_path = {root}\ndataset_name = lmo\n"
@@ -485,7 +523,74 @@ def write_tree(root, n_frames=TREE_FRAMES, seed=TREE_SEED):
                 "BoundingBox_CropSize_GT = 128\n"
                 "divide_number_each_itration = 2\n"
                 "number_of_itration = 16\n")
+    write_vivo_inputs(root, bboxes)
     return cfg_path, frames, masks
+
+
+def write_depth(scene, ts):
+    """`depth/{im:06d}.png` of each frame: the analytic depth of the
+    sphere centred at ts[im] at the pixel centres (the rasterizer's
+    convention), uint16 mm rounded, depth_scale 1.0 as LM-O ships it; 0
+    where the ray misses."""
+    from zebrapose_tpu_torch.data import png
+
+    os.makedirs(os.path.join(scene, "depth"), exist_ok=True)
+    rays = pixel_rays(0.5)
+    for im, t in enumerate(ts):
+        hit, z = sphere_hits(rays, t)
+        depth = np.where(hit, np.round(z), 0).astype(np.uint16)
+        png.imwrite(os.path.join(scene, "depth", f"{im:06d}.png"),
+                    depth.reshape(480, 640))
+
+
+def vivo_detections(bboxes, seed=VIVO_SEED):
+    """Detections of the tree's frames as a detector's JSON would give
+    them ({"1/im": [{obj_id, bbox_est, score}]}, file order kept): every
+    frame a box within 3 px of its GT bbox at 0.9; every 3rd frame that
+    box scaled 1.2x about its centre at 0.5; every 4th a box of its size
+    in the image half away from the object at 0.3; every 5th a box at
+    0.1, below the vivo threshold of 0.2."""
+    rng = np.random.default_rng(seed)
+    dets = {}
+    for im, (x, y, w, h) in enumerate(np.asarray(bboxes, np.int64)):
+        near = [int(v) for v in np.array([x, y, w, h])
+                + rng.integers(-3, 4, 4)]
+        out = [{"obj_id": 1, "bbox_est": near, "score": 0.9}]
+        if im % 3 == 0:
+            cx, cy = near[0] + near[2] / 2, near[1] + near[3] / 2
+            ww, hh = 1.2 * near[2], 1.2 * near[3]
+            out.append({"obj_id": 1, "score": 0.5, "bbox_est": [
+                int(round(cx - ww / 2)), int(round(cy - hh / 2)),
+                int(round(ww)), int(round(hh))]})
+        if im % 4 == 0:
+            bx = int(rng.integers(380, 640 - w)) if x + w / 2 < 320 \
+                else int(rng.integers(0, 260 - w))
+            out.append({"obj_id": 1, "score": 0.3, "bbox_est": [
+                bx, int(rng.integers(0, 480 - h)), int(w), int(h)]})
+        if im % 5 == 0:
+            out.append({"obj_id": 1, "score": 0.1, "bbox_est": [
+                int(v) for v in rng.integers(0, 200, 4) + [0, 0, 20, 20]]})
+        dets[f"1/{im}"] = out
+    return dets
+
+
+def write_vivo_inputs(root, bboxes):
+    """The BOP-challenge phase's inputs in the tree under `root`:
+    `lmo/test_targets_bop19.json` (inst_count 1 an image),
+    `<root>/detections_vivo.json` (`vivo_detections` of the GT bboxes)
+    and the config `<root>/lmo_ape_vivo.txt` (lmo_ape.txt's keys and
+    Detection_reaults)."""
+    with open(os.path.join(root, "lmo", "test_targets_bop19.json"),
+              "w") as f:
+        json.dump([{"scene_id": 1, "im_id": im, "obj_id": 1,
+                    "inst_count": 1} for im in range(len(bboxes))], f)
+    det_path = os.path.join(root, "detections_vivo.json")
+    with open(det_path, "w") as f:
+        json.dump(vivo_detections(bboxes), f)
+    with open(os.path.join(root, "lmo_ape.txt")) as f:
+        base = f.read()
+    with open(os.path.join(root, "lmo_ape_vivo.txt"), "w") as f:
+        f.write(base + f"Detection_reaults = {det_path}\n")
 
 
 def write_train_split(root, n_frames=TRAIN_FRAMES, seed=TRAIN_SEED):
@@ -1041,6 +1146,212 @@ def train_phase(dev, card, tmp):
     return rec
 
 
+def _near_thresholds(err, thresholds, tol):
+    """[n] bool: which errors lie within `tol` ([n] or scalar) of any of
+    `thresholds`."""
+    err = np.asarray(err, np.float64)
+    return (np.abs(err[:, None] - np.asarray(thresholds)[None])
+            <= np.broadcast_to(tol, err.shape)[:, None]).any(1)
+
+
+def _last_json(text):
+    """The JSON object that ends `text` (a command's result, printed
+    with json.dumps(indent=2): its first line is "{")."""
+    return json.loads(text[text.rfind("\n{\n") + 1:])
+
+
+def bop_phase(dev, card, tmp):
+    """Phase 9 (see the module docstring) over phase 7's tree under
+    `tmp`; returns its record."""
+    import contextlib
+    import io
+
+    import torch
+
+    from zebrapose_tpu_torch import cli
+    from zebrapose_tpu_torch.eval import bop_score
+    from zebrapose_tpu_torch.native import render_label
+    from zebrapose_tpu_torch.ops._build import _cxx
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "bop")
+    with open(os.path.join(root, "detections_vivo.json")) as f:
+        dets = json.load(f)
+    # vivo's instance order: images in walk order, detections in file
+    # order, those under the threshold dropped
+    expected = [(im, d["score"]) for im in range(TREE_FRAMES)
+                for d in dets[f"1/{im}"] if d["score"] >= 0.2]
+    n_inst = len(expected)
+    out = os.path.join(tmp, "out_vivo")
+    minimal_epnp_hypotheses.launches = 0        # the vivo path's run
+    t0 = time.perf_counter()
+    rc = cli.main(["vivo", "--cfg", os.path.join(root, "lmo_ape_vivo.txt"),
+                   "--obj_name", "ape", "--ckpt_file", CKPT, "--batch_size",
+                   str(VIVO_BATCH), "--output_dir", out, "--device",
+                   str(dev)])
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = minimal_epnp_hypotheses.launches
+    check(rc == 0, f"vivo returned {rc}")
+    (run_dir,) = os.listdir(out)
+    run_dir = os.path.join(out, run_dir)
+    with open(os.path.join(run_dir, "log.txt")) as f:
+        log_text = f.read()
+    res = _last_json(log_text)
+    (timing,) = [json.loads(ln.split(" ", 1)[1]) for ln in
+                 log_text.splitlines() if ln.startswith("timing ")]
+    batches = -(-n_inst // VIVO_BATCH)
+    log(f"[bop] vivo, b{VIVO_BATCH}: {res['instances']} instances of "
+        f"{sum(len(v) for v in dets.values())} detections ({n_inst} at "
+        f"score >= 0.2), solved {res['solved']} ({res['solve_rate']:.4f}); "
+        f"{wall:.2f} s wall, {res['instances'] / wall:.2f} instances/s; "
+        f"{launches} kernel launches over {batches} batches; on {card}")
+    log("[bop] vivo timing " + json.dumps(timing))
+    check(res["instances"] == n_inst, "vivo lost or added instances")
+    check(launches == batches, f"vivo launched the kernel {launches} "
+          f"times over {batches} batches")
+    csv = os.path.join(run_dir, "pose_result_bop", "lmo_ape.csv")
+    rows = [ln.split(",") for ln in open(csv).read().splitlines()[1:]]
+    got = [(int(r[1]), float(r[3])) for r in rows]
+    it = iter(expected)
+    check(len(rows) == res["solved"] and all(g in it for g in got)
+          and all(r[0] == "1" and r[2] == "1" for r in rows),
+          "the CSV does not hold the solved instances in order, each "
+          "with its detection's score")
+
+    # score-bop on the card (the command, and the call that also
+    # returns each pair's errors and the time split), on the CPU
+    args = ["score-bop", "--csv", csv, "--bop_path", root, "--dataset",
+            "lmo"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args + ["--device", str(dev)])
+    check(rc == 0, f"score-bop returned {rc}")
+    command = _last_json(buf.getvalue())
+    scores, errs, times = {}, {}, {}
+    for key, d in (("card", dev), ("cpu", "cpu")):
+        errs[key], times[key] = {}, {}
+        scores[key] = bop_score.score_csv(csv, root, "lmo", device=d,
+                                          timing=times[key],
+                                          pair_errors=errs[key])
+    card_s, cpu_s = scores["card"], scores["cpu"]
+    check(json.loads(json.dumps(card_s)) == command,
+          "score-bop's printed result differs from score_csv's")
+    ec, ep = errs["card"][1], errs["cpu"][1]
+    n_pairs = len(ep["mssd"])
+    rel = {}
+    for k in ("mssd", "mspd"):
+        d = np.abs(ec[k] - ep[k])
+        rel[k] = float((d / np.maximum(np.abs(ep[k]), 1e-12)).max())
+        # float32 spacing of a 600 mm coordinate is 6e-5
+        check(np.isfinite(ep[k]).all() and (d <= 1e-5 * np.abs(ep[k])
+                                             + 1e-4).all(),
+              f"{k}: card and CPU differ beyond 1e-5 relative")
+    union = ep["vsd_union"].astype(np.float64)
+    vsd_d = np.abs(ec["vsd"] - ep["vsd"]).max(1) * np.maximum(union, 1)
+    check((ec["vsd_union"] == ep["vsd_union"]).all()
+          and (vsd_d <= 1.0 + 1e-3).all(),
+          "VSD: card and CPU differ by more than a pixel of the union")
+    near = {
+        "AR_mssd": _near_thresholds(ep["mssd"], bop_score.THETAS * 80.0,
+                                    1e-5 * np.abs(ep["mssd"]) + 1e-4),
+        "AR_mspd": _near_thresholds(ep["mspd"], bop_score.MSPD_THETAS,
+                                    1e-5 * np.abs(ep["mspd"]) + 1e-4),
+        "AR_vsd": np.array([_near_thresholds(
+            row, bop_score.THETAS, 1.0 / max(u, 1)).any()
+            for row, u in zip(ep["vsd"], union)], bool)}
+    n_gt = card_s["n_targets"]
+    for k, flags in near.items():
+        check(abs(card_s[k] - cpu_s[k]) <= flags.sum() / n_gt,
+              f"{k}: card {card_s[k]} vs CPU {cpu_s[k]} beyond the "
+              f"{int(flags.sum())} pairs near a threshold")
+    log(f"[bop] score-bop, S = 1: card AR {card_s['AR']:.4f} (vsd "
+        f"{card_s['AR_vsd']:.4f}, mssd {card_s['AR_mssd']:.4f}, mspd "
+        f"{card_s['AR_mspd']:.4f}), CPU AR {cpu_s['AR']:.4f} (vsd "
+        f"{cpu_s['AR_vsd']:.4f}, mssd {cpu_s['AR_mssd']:.4f}, mspd "
+        f"{cpu_s['AR_mspd']:.4f}) over {n_gt} targets and {n_pairs} pairs; "
+        f"card vs CPU per pair: mssd rel {rel['mssd']:.2e}, mspd rel "
+        f"{rel['mspd']:.2e}, VSD max {vsd_d.max():.3f} union pixels; pairs "
+        "within the tolerance of a threshold: "
+        + ", ".join(f"{k[3:]} {int(v.sum())}" for k, v in near.items()))
+    want = JAX_CPU_BOP["AR"] - AR_SLACK
+    log(f"[bop] the JAX package on a CPU, same tree: AR "
+        f"{JAX_CPU_BOP['AR']:.4f} (vsd {JAX_CPU_BOP['AR_vsd']:.4f}, mssd "
+        f"{JAX_CPU_BOP['AR_mssd']:.4f}, mspd {JAX_CPU_BOP['AR_mspd']:.4f}); "
+        f"gate card AR >= {want:.4f}")
+    check(card_s["AR"] >= want, f"AR below the JAX package's less {AR_SLACK}")
+
+    # the sphere's continuous symmetry about z: ceil(pi / 0.01) - 1 = 314
+    # rotations (bop_toolkit's discretization leaves out the angle 0)
+    info_path = os.path.join(root, "lmo", "models_eval", "models_info.json")
+    with open(info_path) as f:
+        info = f.read()
+    sym = json.loads(info)
+    sym["1"]["symmetries_continuous"] = [{"axis": [0, 0, 1],
+                                          "offset": [0, 0, 0]}]
+    n_sym = len(bop_score.get_symmetry_transformations(sym["1"])[0])
+    with open(info_path, "w") as f:
+        json.dump(sym, f)
+    try:
+        times["card_sym"] = {}
+        sym_s = bop_score.score_csv(csv, root, "lmo", device=dev,
+                                    timing=times["card_sym"])
+    finally:
+        with open(info_path, "w") as f:
+            f.write(info)
+    log(f"[bop] score-bop, S = {n_sym} (continuous symmetry about z): card "
+        f"AR {sym_s['AR']:.4f} (vsd {sym_s['AR_vsd']:.4f}, mssd "
+        f"{sym_s['AR_mssd']:.4f}, mspd {sym_s['AR_mspd']:.4f})")
+    check(n_sym == 314, f"{n_sym} symmetry transforms, not 314")
+    check(sym_s["AR_mssd"] >= card_s["AR_mssd"]
+          and sym_s["AR_mspd"] >= card_s["AR_mspd"]
+          and sym_s["AR_vsd"] == card_s["AR_vsd"],
+          "the symmetry lowered AR_mssd / AR_mspd or moved AR_vsd")
+    for key, what in (("card", f"S = 1 on {card}"), ("cpu", "S = 1 on the "
+                      "card machine's CPU"), ("card_sym",
+                                              f"S = {n_sym} on {card}")):
+        t = times[key]
+        log(f"[bop] score-bop {what}: {t['score_s']:.2f} s: errors "
+            f"{t['errors_s']:.2f} s (device), depth renders "
+            f"{t['render_s']:.2f} s (host), VSD pixel math {t['vsd_s']:.2f}"
+            f" s (device), matching {t['match_s']:.2f} s (host)")
+
+    # the host rasterizer, built here, against the written analytic
+    # depth of frame 0
+    from zebrapose_tpu_torch.data import bop_io, png
+    mesh = bop_io.load_ply(os.path.join(root, "lmo", "models_eval",
+                                        "obj_000001.ply"))
+    with open(os.path.join(root, "lmo", "test", "000001",
+                           "scene_gt.json")) as f:
+        g = json.load(f)["0"][0]
+    _, rendered = render_label(
+        mesh["pts"], mesh["faces"], np.ones(len(mesh["faces"]), np.int32),
+        K_LMO, np.array(g["cam_R_m2c"]).reshape(3, 3),
+        np.array(g["cam_t_m2c"]), 640, 480, with_depth=True)
+    written = png.imread(os.path.join(root, "lmo", "test", "000001",
+                                      "depth", "000000.png"),
+                         png.IMREAD_UNCHANGED).astype(np.float64)
+    both = (rendered > 0) & (written > 0)
+    close = float((np.abs(rendered - written)[both] <= 1.0).mean())
+    cxx = subprocess.run([_cxx(), "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    log(f"[bop] host rasterizer ({cxx}): frame 0's render within 1 mm of "
+        f"the analytic depth on {100 * close:.2f}% of the {int(both.sum())}"
+        " pixels both cover")
+    check(both.sum() > 1000 and close >= 0.99,
+          "the rasterizer disagrees with the analytic depth")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[bop] phase 9 took {phase_s:.1f} s")
+    return {"card": card, "instances": n_inst, "solved": res["solved"],
+            "wall_s": wall, "instances_per_s": n_inst / wall,
+            "launches": launches, "timing": timing, "scores": scores,
+            "scores_sym": sym_s, "n_sym": n_sym, "score_timing": times,
+            "rel_err": rel, "vsd_max_union_px": float(vsd_d.max()),
+            "near_threshold": {k: int(v.sum()) for k, v in near.items()},
+            "render_close_share": close, "cxx": cxx, "phase_s": phase_s}
+
+
 def build_baseline(path):
     """Compile another version of csrc/epnp_minimal.cu with the port's
     flags into the build directory; its zp_epnp_minimal entry point."""
@@ -1077,9 +1388,11 @@ def main(argv=None) -> int:
     opts = ap.parse_args(argv)
     if opts.write_tree:
         sys.path.insert(0, HERE)
-        cfg_path, _, _ = write_tree(os.path.abspath(opts.write_tree))
+        root = os.path.abspath(opts.write_tree)
+        cfg_path, _, _ = write_tree(root)
         log(f"[tree] {cfg_path}")
-        log(f"[tree] {write_train_split(os.path.abspath(opts.write_tree))}")
+        log(f"[tree] {write_train_split(root)}")
+        log(f"[tree] {os.path.join(root, 'lmo_ape_vivo.txt')}")
         return 0
     import torch
 
@@ -1501,10 +1814,11 @@ def main(argv=None) -> int:
     log("[timing] library_ms: null -- no single PyTorch call computes a "
         "minimal-set EPnP")
 
-    # ---- 7. the test runner, 8. the training path ---------------------
+    # ---- 7. the test runner, 8. the training path, 9. BOP ------------
     with tempfile.TemporaryDirectory() as tmp:
         runner = runner_phase(dev, card, tmp)
         train = train_phase(dev, card, tmp)
+        bop = bop_phase(dev, card, tmp)
 
     main_n = 256 * cfg.n_hypotheses                  # the b256 stage
     rec = {"name": "minimal_epnp_hypotheses", "route": "cuda",
@@ -1522,8 +1836,8 @@ def main(argv=None) -> int:
                "main": main_launches,
                **{f"runner_{k}": v["launches"]
                   for k, v in runner["runs"].items()},
-               "train": train["launches"]},
-           "runner": runner, "train": train, "card": card}
+               "train": train["launches"], "vivo": bop["launches"]},
+           "runner": runner, "train": train, "bop": bop, "card": card}
     if ab:
         rec["ab"] = {str(n): v for n, v in ab.items()}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -1,11 +1,14 @@
-"""The kernel library's name follows every source it is built from.
+"""The native libraries' names follow every source they are built from.
 
 `zebrapose_tpu_torch/ops/_build.py` names each library by a hash of the
-nvcc flags, `csrc/<name>.cu` and every file under `csrc/` that it
-includes, so an edited header rebuilds. These tests work on a copy of
-`csrc/` in a temporary directory and run no nvcc.
+compiler flags, `csrc/<name>.cu` (nvcc) or `csrc/<name>.cpp` (c++) and
+every file under `csrc/` that it includes, so an edited header rebuilds.
+These tests work on a copy of `csrc/` in a temporary directory and run
+no nvcc; the host route's tests compile a small C++ file with c++.
 """
 
+import ctypes
+import hashlib
 import shutil
 
 import pytest
@@ -32,6 +35,45 @@ def test_target_is_stable_for_the_shipped_sources():
     assert _build._target("epnp_minimal") == _build._target("epnp_minimal")
     assert _build.sources("epnp_minimal") == [
         (_build.CSRC / "epnp_minimal.cu").resolve()]
+    assert _build.sources("zebra_native") == [
+        (_build.CSRC / "zebra_native.cpp").resolve()]
+
+
+@pytest.mark.parametrize("name", ["epnp_minimal", "zebra_native"])
+def test_target_hashes_the_route_flags_and_sources(name):
+    """The kernel keeps the name it had before the host route existed
+    (nvcc flags, then each source's path and bytes); the host library is
+    named the same way from the c++ flags."""
+    flags = _build.NVCC_FLAGS if name == "epnp_minimal" else _build.CXX_FLAGS
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in _build.sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    assert _build._target(name).name == f"lib{name}_{h.hexdigest()[:16]}.so"
+    assert "-ffast-math" not in _build.CXX_FLAGS
+    assert not any(f.startswith("-march") for f in _build.CXX_FLAGS)
+
+
+def test_host_route_builds_with_cxx_and_raises_without_it(csrc, tmp_path,
+                                                          monkeypatch):
+    """A .cpp source is built with $CXX at first use into the build
+    directory; a missing compiler raises with what went wrong, and there
+    is nothing to fall back to."""
+    (csrc / "twice.cpp").write_text(
+        'extern "C" int zn_twice(int x) { return 2 * x; }\n')
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setenv("CXX", "no-such-compiler")
+    with pytest.raises(RuntimeError, match="cannot run no-such-compiler"):
+        _build.load("twice")
+    monkeypatch.setenv("CXX", "c++")
+    assert _build.load("twice").zn_twice(ctypes.c_int(21)) == 42
+    assert _build._target("twice", csrc).exists()
+    (csrc / "broken.cpp").write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="broken: c\\+\\+ exit"):
+        _build.build(["broken"])
+    with pytest.raises(FileNotFoundError, match="absent"):
+        _build.build(["absent"])
 
 
 def test_sources_follow_quoted_includes_recursively(csrc):

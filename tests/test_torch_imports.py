@@ -43,7 +43,7 @@ def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names
-                  if n.endswith((".py", ".cu", ".cuh"))]
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
     return files
 
 
@@ -65,7 +65,8 @@ def test_port_imports_no_jax_in_subprocess():
                 "utils.logging", "utils.profiling", "eval.runner", "cli",
                 "__main__", "models.losses", "ops.augment", "train.state",
                 "train.train_step", "train.checkpoints", "train.trainer",
-                "parallel.mesh"}
+                "parallel.mesh", "native", "ops.bop_errors",
+                "eval.bop_score", "eval.vivo", "eval.runner_vivo"}
     assert {"zebrapose_tpu_torch." + m for m in expected} <= \
         set(res["modules"])
     # the port does not touch the TF32 switches: float32 matmuls stay
@@ -116,6 +117,22 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["train", "--cfg", "unused.txt", "--obj_name", "ape",
                   "--from_scratch"])
+    # the BOP-challenge path: vivo and its scoring
+    from zebrapose_tpu_torch.eval.bop_score import score_csv
+    from zebrapose_tpu_torch.eval.runner_vivo import run_vivo
+    from zebrapose_tpu_torch.ops.bop_errors import vsd_batch
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["vivo", "--cfg", "unused.txt", "--obj_name", "ape",
+                  "--ckpt_file", "unused.npz"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_vivo(ZebraConfig(), "ape", "unused.npz", "unused")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        score_csv("unused.csv", "unused", "lmo")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vsd_batch(*[np.zeros((1, 3, 3))] * 4,
+                  np.zeros((1, 4, 4), np.float32),
+                  np.eye(3)[None], np.zeros((3, 3), np.float32),
+                  np.zeros((1, 3), np.int32), 80.0)
     # CPU work must be asked for: device="cpu" builds the step
     make_eval_step(lambda b: b, lut, 64, 32, 2, 2, "crop_square_resize",
                    "BCE", PnPConfig(), device="cpu")

@@ -1,4 +1,4 @@
-"""Command line of the port: the reference's train and test entry points.
+"""Command line of the port: the reference's train, test and BOP commands.
 
   python -m zebrapose_tpu_torch train --cfg cfg.txt --obj_name ape \
       [--from_scratch | --pretrained_backbone resnet34.pth] [--bf16] \
@@ -6,16 +6,26 @@
   python -m zebrapose_tpu_torch test --cfg cfg.txt --obj_name ape \
       --ckpt_file <.npz or .pth> [--batch_size N] [--escalate_h 256] \
       [--device cuda|cpu]
+  python -m zebrapose_tpu_torch vivo --cfg cfg.txt --obj_name ape \
+      --ckpt_file <.npz or .pth> [--score_threshold 0.2] [--batch_size N] \
+      [--mask_rcnn] [--roi_slice] [--escalate_h 256] [--device cuda|cpu]
+  python -m zebrapose_tpu_torch score-bop --csv sub.csv --bop_path DIR \
+      --dataset lmo [--split test] [--no_vsd] [--device cuda|cpu]
   python -m zebrapose_tpu_torch merge-csv a.csv b.csv --out all.csv
 
-The flags are those of `python -m zebrapose_tpu train` / `test` plus
-`--device` (default cuda; without CUDA a command fails unless `--device
-cpu` is given). `train` writes `<output_dir>/<dataset>_<obj>/
-checkpoints/` (reference-format .pth files that `test` loads) and
-`logs/metrics.jsonl`. Its `--qat`, `--multihost` and `--input_mode
-prefetch | device_cache` raise NotImplementedError. The config file is
-the reference's flat `key = value` format. The other commands of the
-JAX package's CLI are not ported yet (ROADMAP.md).
+The flags are those of `python -m zebrapose_tpu train` / `test` /
+`vivo` / `score-bop` plus `--device` (default cuda; without CUDA a
+command fails unless `--device cpu` is given). `train` writes
+`<output_dir>/<dataset>_<obj>/checkpoints/` (reference-format .pth files
+that `test` loads) and `logs/metrics.jsonl`. Its `--qat`, `--multihost`
+and `--input_mode prefetch | device_cache` raise NotImplementedError, as
+`--int8` does for `test` and `vivo`. `vivo` (the BOP-challenge
+multi-instance protocol over detections) writes the submission CSV that
+`score-bop` scores (BOP19 AR_vsd / AR_mssd / AR_mspd; the result is
+printed as JSON). The config file is the reference's flat `key = value`
+format. The other commands of the JAX package's CLI (among them
+`vivo-fleet` and `serve-exported --vivo`) are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -24,6 +34,21 @@ import argparse
 import json
 import os
 import sys
+
+
+def _add_pnp_flags(p):
+    p.add_argument("--escalate_h", type=int, default=0,
+                   help="adaptive RANSAC second stage: redraw with this "
+                        "many hypotheses when a frame's inlier fraction is "
+                        "weak (0 = off)")
+    p.add_argument("--escalate_frac", type=float, default=0.4,
+                   help="inlier fraction below which the second RANSAC "
+                        "stage triggers")
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device (cuda, cuda:N or cpu)")
 
 
 def _pnp_cfg_from_args(args):
@@ -81,8 +106,7 @@ def _add_train(sub):
     p.add_argument("--gt_labels", default="v2", choices=["v1", "v2"],
                    help="GT label directory: v2 = <split>_GT_v2, v1 = "
                         "<split>_GT")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (cuda, cuda:N or cpu)")
+    _add_device(p)
 
 
 def _train(args) -> int:
@@ -151,15 +175,42 @@ def main(argv=None):
     p_test.add_argument("--profile", default=None,
                         help="write a torch.profiler Chrome trace "
                              "(trace.json) to this dir")
-    p_test.add_argument("--escalate_h", type=int, default=0,
-                        help="adaptive RANSAC second stage: redraw with "
-                             "this many hypotheses when a frame's inlier "
-                             "fraction is weak (0 = off)")
-    p_test.add_argument("--escalate_frac", type=float, default=0.4,
-                        help="inlier fraction below which the second "
-                             "RANSAC stage triggers")
-    p_test.add_argument("--device", default="cuda",
-                        help="torch device (cuda, cuda:N or cpu)")
+    _add_pnp_flags(p_test)
+    _add_device(p_test)
+
+    p_vivo = sub.add_parser("vivo",
+                            help="multi-instance eval (test_vivo)")
+    p_vivo.add_argument("--cfg", required=True, help="reference-format config")
+    p_vivo.add_argument("--obj_name", required=True)
+    p_vivo.add_argument("--ckpt_file", required=True,
+                        help="compact .npz or reference-format .pth")
+    p_vivo.add_argument("--output_dir", default="eval_out")
+    p_vivo.add_argument("--variant", default="v2")
+    p_vivo.add_argument("--score_threshold", type=float, default=0.2)
+    p_vivo.add_argument("--batch_size", type=int, default=16)
+    p_vivo.add_argument("--int8", action="store_true",
+                        help="int8 conv compute (not ported yet)")
+    p_vivo.add_argument("--mask_rcnn", action="store_true",
+                        help="use detector RLE segmentations "
+                             "(test_vivo_for_mask_rcnn.py)")
+    p_vivo.add_argument("--roi_slice", action="store_true",
+                        help="ship only each frame's clamped square-bbox "
+                             "bytes to the device (bit-exact crops)")
+    _add_pnp_flags(p_vivo)
+    _add_device(p_vivo)
+
+    p_score = sub.add_parser(
+        "score-bop",
+        help="BOP19 challenge scoring (AR_vsd/mssd/mspd) of a submission "
+             "CSV against a BOP dataset tree")
+    p_score.add_argument("--csv", required=True,
+                         help="submission CSV (merge-csv output)")
+    p_score.add_argument("--bop_path", required=True)
+    p_score.add_argument("--dataset", required=True)
+    p_score.add_argument("--split", default="test")
+    p_score.add_argument("--no_vsd", action="store_true",
+                         help="skip VSD even if depth images exist")
+    _add_device(p_score)
 
     p_merge = sub.add_parser("merge-csv", help="merge per-object CSVs")
     p_merge.add_argument("csvs", nargs="+")
@@ -175,30 +226,50 @@ def main(argv=None):
         print(f"merged {len(args.csvs)} files -> {args.out}")
         return 0
 
-    from zebrapose_tpu_torch.config import ZebraConfig
-    from zebrapose_tpu_torch.eval.runner import run_test
     from zebrapose_tpu_torch.utils.device import resolve_device
-    from zebrapose_tpu_torch.utils.logging import TeeOutput, prepare_eval_dir
-    from zebrapose_tpu_torch.utils.profiling import profile_trace
 
     device = resolve_device(args.device)
+    if args.command == "score-bop":
+        from zebrapose_tpu_torch.eval.bop_score import score_csv
+        res = score_csv(args.csv, args.bop_path, args.dataset,
+                        split=args.split,
+                        with_vsd=False if args.no_vsd else None,
+                        device=device)
+        print(json.dumps(res, indent=2))
+        return 0
+
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.utils.logging import TeeOutput, prepare_eval_dir
+
     cfg = ZebraConfig.from_file(args.cfg)
     # Reference test.py:589-602: each eval run gets a timestamped dir
     # with the effective config in config.txt and the console in log.txt.
     items = dict(cfg.to_dict())
     items.update({"obj_name": args.obj_name,
                   "checkpoint_file": args.ckpt_file,
-                  "command": args.command, "ignore_bit": args.ignore_bit,
-                  "device": str(device)})
+                  "command": args.command, "device": str(device)})
+    if args.command == "test":
+        items["ignore_bit"] = args.ignore_bit
     run_dir = prepare_eval_dir(args.output_dir, items)
     with TeeOutput(os.path.join(run_dir, "log.txt")):
         print(f"eval run dir: {run_dir}")
-        with profile_trace(args.profile):
-            metrics = run_test(
+        if args.command == "test":
+            from zebrapose_tpu_torch.eval.runner import run_test
+            from zebrapose_tpu_torch.utils.profiling import profile_trace
+            with profile_trace(args.profile):
+                metrics = run_test(
+                    cfg, args.obj_name, args.ckpt_file, run_dir,
+                    ignore_bit=args.ignore_bit, variant=args.variant,
+                    debug=args.debug, batch_size=args.batch_size,
+                    max_samples=args.max_samples, mask_rcnn=args.mask_rcnn,
+                    int8=args.int8, roi_slice=args.roi_slice,
+                    pnp_cfg=_pnp_cfg_from_args(args), device=device)
+        else:
+            from zebrapose_tpu_torch.eval.runner_vivo import run_vivo
+            metrics = run_vivo(
                 cfg, args.obj_name, args.ckpt_file, run_dir,
-                ignore_bit=args.ignore_bit, variant=args.variant,
-                debug=args.debug, batch_size=args.batch_size,
-                max_samples=args.max_samples, mask_rcnn=args.mask_rcnn,
+                variant=args.variant, score_threshold=args.score_threshold,
+                batch_size=args.batch_size, mask_rcnn=args.mask_rcnn,
                 int8=args.int8, roi_slice=args.roi_slice,
                 pnp_cfg=_pnp_cfg_from_args(args), device=device)
         print(json.dumps(metrics, indent=2))

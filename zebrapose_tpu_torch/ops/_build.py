@@ -1,17 +1,22 @@
-"""Build and load the port's CUDA kernels (nvcc + ctypes).
+"""Build and load the port's native libraries (nvcc or c++, + ctypes).
 
-Each `csrc/<name>.cu` exposes a plain C interface and is compiled at
-first use into a shared library under `zebrapose_tpu_torch/_build/`
-(listed in .gitignore), named by a hash of the flags, the source and
-every file under `csrc/` that it includes (`#include "..."`, followed
-recursively), so an edited source or header rebuilds and an unchanged
-one loads in milliseconds.
-No PyTorch headers are included: nvcc takes seconds, not minutes.
+Each `csrc/<name>.cu` (a CUDA kernel) or `csrc/<name>.cpp` (host C++)
+exposes a plain C interface and is compiled at first use into a shared
+library under `zebrapose_tpu_torch/_build/` (listed in .gitignore),
+named by a hash of the flags, the source and every file under `csrc/`
+that it includes (`#include "..."`, followed recursively), so an edited
+source or header rebuilds and an unchanged one loads in milliseconds.
+No PyTorch headers are included: a build takes seconds, not minutes.
 
-Flags: sm_90a, -O3, and NOT --use_fast_math — fast math changes sqrtf,
-division and powf, and the kernels must track their plain PyTorch
-versions step for step. `-Xptxas -v` reports registers and spills; the
-report is kept beside the library (`build_log`).
+CUDA flags: sm_90a, -O3, and NOT --use_fast_math — fast math changes
+sqrtf, division and powf, and the kernels must track their plain
+PyTorch versions step for step. `-Xptxas -v` reports registers and
+spills; the report is kept beside the library (`build_log`).
+
+Host C++ flags: those of `native/Makefile` that change the code
+(-O3 -std=c++17 -fPIC -shared), with `c++` or `$CXX`; no -ffast-math
+and no -march=native, so the port's copy of the JAX package's host
+library computes the same bits.
 """
 
 from __future__ import annotations
@@ -23,13 +28,14 @@ import re
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 _lock = threading.Lock()
@@ -42,15 +48,36 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else "nvcc"
 
 
-def sources(name: str, csrc: Path = CSRC) -> List[Path]:
-    """`csrc/<name>.cu` and every file under `csrc` that it includes with
-    quotes, directly or through another such file, in the order found.
-    Includes resolve against the including file's directory, as nvcc
-    resolves them; a name that is not a file under `csrc` is a system
-    header and is skipped."""
+def _cxx() -> str:
+    return os.environ.get("CXX", "c++")
+
+
+def _source(name: str, csrc: Optional[Path] = None) -> Path:
+    """`csrc/<name>.cu`, else `csrc/<name>.cpp` (`csrc`: CSRC)."""
+    csrc = csrc or CSRC
+    for ext in (".cu", ".cpp"):
+        path = csrc.resolve() / f"{name}{ext}"
+        if path.is_file():
+            return path
+    raise FileNotFoundError(f"no {name}.cu or {name}.cpp under {csrc}")
+
+
+def _compiler(src: Path) -> Tuple[str, Tuple[str, ...]]:
+    """The compiler and flags for a source: nvcc for .cu, c++ else."""
+    return (_nvcc(), NVCC_FLAGS) if src.suffix == ".cu" else \
+        (_cxx(), CXX_FLAGS)
+
+
+def sources(name: str, csrc: Optional[Path] = None) -> List[Path]:
+    """`csrc/<name>.cu` (or `.cpp`) and every file under `csrc` that it
+    includes with quotes, directly or through another such file, in the
+    order found. Includes resolve against the including file's
+    directory, as the compilers resolve them; a name that is not a file
+    under `csrc` is a system header and is skipped."""
+    csrc = csrc or CSRC
     root = csrc.resolve()
     found: List[Path] = []
-    todo = [root / f"{name}.cu"]
+    todo = [_source(name, csrc)]
     while todo:
         path = todo.pop(0)
         if path in found:
@@ -63,8 +90,9 @@ def sources(name: str, csrc: Path = CSRC) -> List[Path]:
     return found
 
 
-def _target(name: str, csrc: Path = CSRC) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _target(name: str, csrc: Optional[Path] = None) -> Path:
+    csrc = csrc or CSRC
+    h = hashlib.sha256(" ".join(_compiler(_source(name, csrc))[1]).encode())
     root = csrc.resolve()
     for path in sources(name, csrc):
         h.update(str(path.relative_to(root)).encode() + b"\0")
@@ -73,31 +101,37 @@ def _target(name: str, csrc: Path = CSRC) -> Path:
 
 
 def build(names: Iterable[str]) -> None:
-    """Compile every missing library, one nvcc per source, all started
-    together. Raises with nvcc's output if any build fails."""
+    """Compile every missing library, one compiler process per source,
+    all started together. Raises with the compiler's output if any build
+    fails, or if the compiler is not found."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    procs, failed = [], []
     for name in names:
         out = _target(name)
         if out.exists():
             continue
+        src = _source(name)
+        compiler, flags = _compiler(src)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(out.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, log,
-                      subprocess.Popen(cmd, stdout=log,
-                                       stderr=subprocess.STDOUT)))
-    failed = []
+        cmd = [compiler, *flags, "-o", str(tmp), str(src)]
+        try:
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        except OSError as e:
+            log.close()
+            failed.append(f"{name}: cannot run {compiler}: {e}")
+            continue
+        procs.append((name, out, tmp, log, proc))
     for name, out, tmp, log, proc in procs:
         rc = proc.wait()
         log.close()
         if rc != 0:
-            failed.append(f"{name}: nvcc exit {rc}\n"
+            failed.append(f"{name}: {proc.args[0]} exit {rc}\n"
                           + out.with_suffix(".log").read_text())
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native build failed:\n" + "\n".join(failed))
 
 
 def build_log(name: str) -> str:
@@ -107,7 +141,8 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built if missing."""
+    """The loaded library for csrc/<name>.cu or .cpp, built if
+    missing."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
