@@ -53,6 +53,18 @@ check exits non-zero. Phases:
                  symmetry (314 transforms); one render of the host
                  rasterizer against the written analytic depth; the
                  time of each, split as the commands measure it
+ 10. prep        the data-preparation path: the committed JPEG / TIFF /
+                 Adam7 fixtures decoded and held to cv2's hashes (the
+                 progressive one refused), ms a 480x640 .jpg frame;
+                 `generate-mesh-code` on the sphere's PLY against the
+                 committed LUT (the partition's invariants if the
+                 toolchain's partition differs); `generate-labels` over
+                 phase 7's split, plain and with the sphere's continuous
+                 symmetry, against the JAX package's label hashes; a
+                 `train_pbr` split of 4 committed .jpg frames labelled by
+                 `generate-labels`, and `train --from_scratch --bf16` on it
+                 for 40 steps with one pose validation (the kernel's
+                 launches counted, the .jpg and label reads counted)
 
 `--write-tree DIR` writes phase 7's tree with phase 8's training split
 and phase 9's inputs (and their configs) on the CPU and stops: the JAX
@@ -118,6 +130,22 @@ VIVO_SEED, VIVO_BATCH = 6, 32
 JAX_CPU_BOP = {"AR": 0.8901111111111111, "AR_vsd": 0.8478333333333333,
                "AR_mssd": 0.8441666666666666, "AR_mspd": 0.9783333333333333}
 AR_SLACK = 0.10
+# the data-preparation phase: the committed image fixtures (their cv2
+# decodes in manifest.json), the SHA-256 of the label ids of the JAX
+# package's `python -m zebrapose_tpu generate-labels --cfg DIR/lmo_ape.txt
+# --obj_name ape --data_folder test` over `--write-tree DIR`
+# (JAX_PLATFORMS=cpu, its native library built by g++ 12.2.0 on an x86
+# host; `label_ids_sha` of its test_GT_v2/000001 read with cv2), without a
+# symmetry and with the sphere's continuous symmetry about z in
+# models/models_info.json; the training command's steps and batch
+FIXTURES = os.path.join(HERE, "tests", "data", "torch_images")
+JAX_CPU_LABELS = {
+    "plain": "17d21f769c1c5cd5c9558c1f882d3dc8f1ca69e6ee5bddb6898169562126f245",
+    "continuous_z":
+        "327cd88fedcaa803dc60ceabe092739d344f0485f159082384ecd3987244c30c"}
+SYM_INFO = {"symmetries_continuous": [{"axis": [0, 0, 1],
+                                       "offset": [0, 0, 0]}]}
+PREP_FRAMES, PREP_STEPS, PREP_BATCH = 4, 40, 32
 
 # H100 peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # (FP32 non-tensor FLOP/s, HBM bytes/s)
@@ -601,8 +629,9 @@ def write_train_split(root, n_frames=TRAIN_FRAMES, seed=TRAIN_SEED):
     scene_gt_info, and GT labels in `lmo/train_real_GT_v2/000001`. A hit
     pixel's label is the class whose committed LUT centroid lies nearest
     to the pixel's model-frame surface point: the LUT's Voronoi cells,
-    not the partitioner's faces (its order cannot be reproduced off the
-    host that built the LUT, ROADMAP A item 4). Also writes the config
+    from the analytic surface points, which phase 8 has always trained
+    on (phase 10 labels its split with the port's `generate-labels`,
+    the partitioner's faces rendered). Also writes the config
     `<root>/lmo_ape_train.txt`. Returns its path."""
     import torch
     from scipy.spatial import cKDTree
@@ -1352,6 +1381,309 @@ def bop_phase(dev, card, tmp):
             "render_close_share": close, "cxx": cxx, "phase_s": phase_s}
 
 
+def label_ids_sha(folder, imread):
+    """SHA-256 over a label folder: each file in name order, its name's
+    bytes, then its ids (B << 16 | G << 8 | R) as uint32 from `imread`."""
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(folder)):
+        bgr = imread(os.path.join(folder, name)).astype(np.uint32)
+        h.update(name.encode())
+        h.update(((bgr[..., 0] << 16) | (bgr[..., 1] << 8)
+                  | bgr[..., 2]).tobytes())
+    return h.hexdigest()
+
+
+def write_pbr_split(root):
+    """A `lmo/train_pbr/000001` split in the tree under `root`: rgb = the
+    committed .jpg fixtures (frames 0-3 of `write_train_split`'s
+    generator), masks, scene_camera / scene_gt / scene_gt_info from the
+    same seeds, no labels; and the config `<root>/lmo_ape_pbr.txt`.
+    Returns its path."""
+    import shutil
+
+    from zebrapose_tpu_torch.data import png
+
+    scene = os.path.join(root, "lmo", "train_pbr", "000001")
+    for sub in ("rgb", "mask", "mask_visib"):
+        os.makedirs(os.path.join(scene, sub), exist_ok=True)
+    rays = pixel_rays()
+    cam, gt, gti = {}, {}, {}
+    for im in range(PREP_FRAMES):
+        _, hit, _, bbox, R, t = sphere_frame(
+            np.random.default_rng([TRAIN_SEED, im]), rays)
+        shutil.copy(os.path.join(FIXTURES, f"frame_{im:06d}.jpg"),
+                    os.path.join(scene, "rgb", f"{im:06d}.jpg"))
+        for sub in ("mask", "mask_visib"):
+            png.imwrite(os.path.join(scene, sub, f"{im:06d}_000000.png"),
+                        hit.astype(np.uint8) * 255)
+        cam[str(im)] = {"cam_K": K_LMO.reshape(-1).tolist(),
+                        "depth_scale": 1.0}
+        gt[str(im)] = [{"cam_R_m2c": R.reshape(-1).tolist(),
+                        "cam_t_m2c": t.tolist(), "obj_id": 1}]
+        gti[str(im)] = [{"bbox_visib": [int(v) for v in bbox],
+                         "visib_fract": 1.0}]
+    for name, obj in (("scene_camera", cam), ("scene_gt", gt),
+                      ("scene_gt_info", gti)):
+        with open(os.path.join(scene, f"{name}.json"), "w") as f:
+            json.dump(obj, f)
+    cfg_path = os.path.join(root, "lmo_ape_pbr.txt")
+    with open(os.path.join(root, "lmo_ape.txt")) as f:
+        base = f.read()
+    with open(cfg_path, "w") as f:
+        f.write(base + "training_data_folder = train_pbr\n"
+                "val_folder = test\n"
+                f"batch_size = {PREP_BATCH}\nlearning_rate = 2e-4\n")
+    return cfg_path
+
+
+def _partition_invariants(pts, faces):
+    """The partition of the sphere by this machine's build: (whether
+    every class holds floor or ceil of V / 2^16 vertices, whether the
+    face classes follow the majority rule)."""
+    from zebrapose_tpu_torch import native
+
+    vc = native.partition_mesh(pts, 2, 16, seed=0)
+    counts = np.bincount(vc, minlength=2 ** 16)
+    lo = len(pts) // 2 ** 16
+    balanced = bool(counts.min() >= lo and counts.max() <= -(-len(pts)
+                                                              // 2 ** 16))
+    a, b, c = (vc[faces[:, k]] for k in range(3))
+    rule = np.where((a == b) | (a == c), a, np.where(b == c, b, a))
+    return balanced, bool((native.face_classes(vc, faces) == rule).all())
+
+
+def prep_phase(dev, card, tmp, png_ms):
+    """Phase 10 (see the module docstring) over phase 7's tree under
+    `tmp`; `png_ms` is phase 7's PNG decode ms by row filter. Returns
+    its record."""
+    import torch
+
+    import shutil
+
+    from zebrapose_tpu_torch import cli
+    from zebrapose_tpu_torch.codec.lut import load_correspondence_lut
+    from zebrapose_tpu_torch.data import bop_io, png
+    from zebrapose_tpu_torch.ops._build import _cxx
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "bop")
+    rec = {"card": card}
+
+    # 1. the committed fixtures against cv2's decodes
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    flags = {"color": png.IMREAD_COLOR, "gray": png.IMREAD_GRAYSCALE,
+             "unchanged": png.IMREAD_UNCHANGED}
+    equal = 0
+    for name, want in sorted(manifest.items()):
+        path = os.path.join(FIXTURES, name)
+        if "raises" in want:
+            try:
+                png.imread(path)
+                raised = ""
+            except NotImplementedError as e:
+                raised = str(e)
+            check(want["raises"] in raised, f"{name}: not refused by name")
+            continue
+        for key, flag in flags.items():
+            a = np.ascontiguousarray(png.imread(path, flag))
+            got = {"shape": list(a.shape), "dtype": str(a.dtype),
+                   "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+            check(got == want[key], f"{name} under {key}: {got} is not "
+                  f"cv2's {want[key]}")
+            equal += 1
+    frame = os.path.join(FIXTURES, "frame_000000.jpg")
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        png.imread(frame)
+        times.append((time.perf_counter() - t0) * 1e3)
+    jpg_ms = float(np.median(times))
+    log(f"[prep] {len(manifest)} fixtures: {equal} decodes equal to cv2's "
+        f"(COLOR / GRAYSCALE / UNCHANGED), the progressive file refused by "
+        f"name; one 480x640 .jpg frame {jpg_ms:.2f} ms (median of 20 reads; "
+        "phase 7's PNG ms by row filter: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in png_ms.items()) + ") on the card "
+        "machine's host")
+    rec.update(fixtures_equal=equal, jpg_ms=jpg_ms, png_ms=png_ms)
+
+    # 2. generate-mesh-code on the sphere against the committed LUT
+    pts, faces = uv_sphere()
+    ply = os.path.join(tmp, "sphere.ply")
+    bop_io.save_ply(ply, pts, faces=faces)
+    txt = os.path.join(tmp, "sphere_lut.txt")
+    t0 = time.perf_counter()
+    rc = cli.main(["generate-mesh-code", "--mesh", ply, "-d", "2", "-n",
+                   "16", "--corres_txt", txt])
+    partition_s = time.perf_counter() - t0
+    check(rc == 0, f"generate-mesh-code returned {rc}")
+    lut = load_correspondence_lut(txt)
+    with np.load(LUT) as z, open(txt, "rb") as f:
+        same = (np.array_equal(z["points"], lut.points)
+                and np.array_equal(z["valid"], lut.valid)
+                and hashlib.sha256(f.read()).hexdigest()
+                == str(z["text_sha256"]))
+        moved = int((np.abs(z["points"] - lut.points) > 0).any(1).sum())
+    cxx = subprocess.run([_cxx(), "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    if same:
+        log(f"[prep] generate-mesh-code (70200 vertices, 139860 faces, "
+            f"d=2, n=16, seed 0) in {partition_s:.2f} s ({cxx}): points, "
+            "valid and text equal to the committed LUT (JAX package, "
+            "g++ 12.2.0)")
+    else:
+        balanced, majority = _partition_invariants(pts, faces)
+        log(f"[prep] generate-mesh-code in {partition_s:.2f} s ({cxx}): "
+            f"the partition DIFFERS from the committed LUT's (g++ 12.2.0): "
+            f"{moved} of 65536 class centroids differ; invariants: every "
+            f"class holds floor/ceil(V/2^16) vertices {balanced}, face "
+            f"classes by the majority rule {majority}")
+        check(balanced and majority, "the partition breaks its invariants")
+    rec.update(partition_s=partition_s, lut_equal=same,
+               centroids_moved=moved, cxx=cxx)
+
+    # 3. generate-labels over phase 7's split, plain and symmetric
+    info_path = os.path.join(root, "lmo", "models", "models_info.json")
+    with open(info_path) as f:
+        info = f.read()
+    labels = os.path.join(root, "lmo", "test_GT_v2")
+    cfg_test = os.path.join(root, "lmo_ape.txt")
+    rec["labels"] = {}
+    try:
+        for key in ("plain", "continuous_z"):
+            if key == "continuous_z":
+                with open(info_path, "w") as f:
+                    json.dump({"1": dict(json.loads(info)["1"], **SYM_INFO)},
+                              f)
+            shutil.rmtree(labels, ignore_errors=True)
+            t0 = time.perf_counter()
+            rc = cli.main(["generate-labels", "--cfg", cfg_test, "--obj_name",
+                           "ape", "--data_folder", "test"])
+            secs = time.perf_counter() - t0
+            check(rc == 0, f"generate-labels ({key}) returned {rc}")
+            folder = os.path.join(labels, "000001")
+            n = len(os.listdir(folder))
+            sha = label_ids_sha(folder, png.imread)
+            ok = sha == JAX_CPU_LABELS[key]
+            differ, fg = 0, 0
+            if not ok and key == "continuous_z":
+                differ, fg, ref_ok = _symmetric_label_diff(root, folder)
+                log(f"[prep] symmetric labels differ from JAX's: {differ} "
+                    f"of {fg} foreground pixels against renders from the "
+                    f"JAX package's canonical poses (which hash to JAX's "
+                    f"labels: {ref_ok})")
+                check(ref_ok and differ <= 1e-4 * fg,
+                      "symmetric labels differ beyond 1e-4 of the "
+                      "foreground")
+            else:
+                check(ok, f"generate-labels ({key}): label ids differ from "
+                      "the JAX package's")
+            log(f"[prep] generate-labels --data_folder test ({key}): {n} "
+                f"label images in {secs:.2f} s (partition, then renders and "
+                f"PNG writes on the host); label ids "
+                + ("equal to the JAX package's" if ok else
+                   f"{differ} foreground pixels apart") + f" ({sha[:16]})")
+            rec["labels"][key] = {"images": n, "s": secs, "equal": ok,
+                                  "pixels_apart": differ}
+    finally:
+        with open(info_path, "w") as f:
+            f.write(info)
+
+    # 4. a train_pbr split of .jpg frames, labelled by generate-labels,
+    # and `train` on it
+    cfg_pbr = write_pbr_split(root)
+    rc = cli.main(["generate-labels", "--cfg", cfg_pbr, "--obj_name", "ape",
+                   "--data_folder", "train_pbr"])
+    check(rc == 0, f"generate-labels (train_pbr) returned {rc}")
+    out = os.path.join(tmp, "runs_prep")
+    run = os.path.join(out, "lmo_ape")
+    reads = {"jpg": 0, "labels": 0}
+    imread = png.imread
+
+    def counted(path, flags=png.IMREAD_COLOR):
+        if "/train_pbr/" in path and path.endswith(".jpg"):
+            reads["jpg"] += 1
+        if "/train_pbr_GT_v2/" in path:
+            reads["labels"] += 1
+        return imread(path, flags)
+
+    png.imread = counted
+    minimal_epnp_hypotheses.launches = 0          # the prep path's run
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["train", "--cfg", cfg_pbr, "--obj_name", "ape",
+                       "--from_scratch", "--bf16", "--cache_images",
+                       "--log_freq", str(PREP_STEPS), "--max_steps",
+                       str(PREP_STEPS), "--output_dir", out, "--device",
+                       str(dev)])
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    finally:
+        png.imread = imread
+    wall = time.perf_counter() - t0
+    launches = minimal_epnp_hypotheses.launches
+    check(rc == 0, f"train on train_pbr returned {rc}")
+    rows = _metrics_rows(run)
+    losses = [r["value"] for r in rows if r["tag"] == "train/step_loss_total"]
+    timing = {r["tag"][len("timing/"):]: r["value"] for r in rows
+              if r["tag"].startswith("timing/")}
+    n_val = sum(r["tag"] == "val/ADD_recall_0.1d" for r in rows)
+    val_batches = -(-TREE_FRAMES // 16)
+    train_s = timing["fit_s"] - timing["val_s"] - timing["log_s"]
+    step_ms = 1e3 * train_s / timing["steps"]
+    wait = timing["wait_s"] / train_s
+    log(f"[prep] `train --from_scratch --bf16 --cache_images` on "
+        f"train_pbr ({PREP_FRAMES} .jpg frames, labels by generate-labels), "
+        f"b{PREP_BATCH}, {len(losses)} steps in {wall:.1f} s: {reads['jpg']} "
+        f".jpg reads, {reads['labels']} label reads; loss_total first "
+        f"{losses[0]:.4f}, last {losses[-1]:.4f}; {step_ms:.1f} ms a step "
+        f"over the steps' share, waiting for a batch {100 * wait:.1f}% of "
+        f"it; {n_val} pose validation(s) over {TREE_FRAMES} frames at b16 "
+        f"in {timing['val_s']:.2f} s, {launches} kernel launches; on {card}")
+    check(reads["jpg"] >= PREP_FRAMES and reads["labels"] >= PREP_FRAMES,
+          "train did not read the .jpg frames and the generated labels")
+    check(len(losses) == PREP_STEPS and all(np.isfinite(losses)),
+          "a training loss is missing or not finite")
+    check(n_val >= 1 and launches >= n_val * val_batches,
+          "validation did not launch the EPnP kernel on every batch")
+    rec.update(reads=reads, losses=[losses[0], losses[-1]], step_ms=step_ms,
+               wait_share=wait, train_wall_s=wall, timing=timing,
+               launches=launches, validations=n_val)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[prep] phase 10 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def _symmetric_label_diff(root, folder):
+    """The symmetric labels in `folder` against renders of the same mesh
+    from the JAX package's canonical poses (committed): (foreground
+    pixels apart, foreground pixels, whether those renders hash to the
+    JAX package's labels)."""
+    from zebrapose_tpu_torch import native
+    from zebrapose_tpu_torch.data import bop_io, png
+
+    mesh = bop_io.load_ply(os.path.join(root, "lmo", "models",
+                                        "obj_000001.ply"))
+    pts = mesh["pts"].astype(np.float32)
+    faces = mesh["faces"].astype(np.int32)
+    face_class = native.face_classes(native.partition_mesh(pts, 2, 16), faces)
+    ref = np.load(os.path.join(FIXTURES, "sphere_sym_poses.npz"))
+    h = hashlib.sha256()
+    apart = fg = 0
+    for im, name in enumerate(sorted(os.listdir(folder))):
+        ids, _ = native.render_label(pts, faces, face_class.astype(np.int32),
+                                     K_LMO, ref["R"][im], ref["t"][im], 640,
+                                     480)
+        h.update(name.encode())
+        h.update(ids.astype(np.uint32).tobytes())
+        bgr = png.imread(os.path.join(folder, name)).astype(np.int64)
+        got = (bgr[..., 0] << 16) | (bgr[..., 1] << 8) | bgr[..., 2]
+        fg += int(((got > 0) | (ids > 0)).sum())
+        apart += int((got != ids).sum())
+    return apart, fg, h.hexdigest() == JAX_CPU_LABELS["continuous_z"]
+
+
 def build_baseline(path):
     """Compile another version of csrc/epnp_minimal.cu with the port's
     flags into the build directory; its zp_epnp_minimal entry point."""
@@ -1814,11 +2146,12 @@ def main(argv=None) -> int:
     log("[timing] library_ms: null -- no single PyTorch call computes a "
         "minimal-set EPnP")
 
-    # ---- 7. the test runner, 8. the training path, 9. BOP ------------
+    # ---- 7. the test runner, 8. the training path, 9. BOP, 10. prep ---
     with tempfile.TemporaryDirectory() as tmp:
         runner = runner_phase(dev, card, tmp)
         train = train_phase(dev, card, tmp)
         bop = bop_phase(dev, card, tmp)
+        prep = prep_phase(dev, card, tmp, runner["png_decode_ms"])
 
     main_n = 256 * cfg.n_hypotheses                  # the b256 stage
     rec = {"name": "minimal_epnp_hypotheses", "route": "cuda",
@@ -1836,8 +2169,10 @@ def main(argv=None) -> int:
                "main": main_launches,
                **{f"runner_{k}": v["launches"]
                   for k, v in runner["runs"].items()},
-               "train": train["launches"], "vivo": bop["launches"]},
-           "runner": runner, "train": train, "bop": bop, "card": card}
+               "train": train["launches"], "vivo": bop["launches"],
+               "prep": prep["launches"]},
+           "runner": runner, "train": train, "bop": bop, "prep": prep,
+           "card": card}
     if ab:
         rec["ab"] = {str(n): v for n, v in ab.items()}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

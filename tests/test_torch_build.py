@@ -37,9 +37,12 @@ def test_target_is_stable_for_the_shipped_sources():
         (_build.CSRC / "epnp_minimal.cu").resolve()]
     assert _build.sources("zebra_native") == [
         (_build.CSRC / "zebra_native.cpp").resolve()]
+    assert _build.sources("image_decode") == [
+        (_build.CSRC / "image_decode.cpp").resolve()]
 
 
-@pytest.mark.parametrize("name", ["epnp_minimal", "zebra_native"])
+@pytest.mark.parametrize("name", ["epnp_minimal", "zebra_native",
+                                  "image_decode"])
 def test_target_hashes_the_route_flags_and_sources(name):
     """The kernel keeps the name it had before the host route existed
     (nvcc flags, then each source's path and bytes); the host library is

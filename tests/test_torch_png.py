@@ -161,17 +161,36 @@ def test_missing_and_corrupt_files_give_none(tmp_path):
 
 
 def test_interlaced_jpeg_and_tiff_raise(tmp_path):
+    """The reader's refusals: interlaced PNG is read now (as cv2 reads
+    it), progressive JPEG and tiled TIFF raise by name."""
     data = bytearray(png.encode(np.zeros((4, 4), np.uint8)))
-    # IHDR body starts at byte 16; its last byte is the interlace method
+    # IHDR body starts at byte 16; its last byte is the interlace method.
+    # A 4x4 all-zero image in Adam7 order: the non-empty passes 1, 4, 5,
+    # 6 and 7 hold 1x1, 1x1, 2x1, 2x2 and 4x2 pixels, as filtered rows of
+    # zeros.
     data[16 + 12] = 1
     crc = zlib.crc32(bytes(data[12:16 + 13]))
     data[29:33] = struct.pack(">I", crc)
+    idat = b"".join(b"\x00" + b"\x00" * w for w, rows in
+                    ((1, 1), (1, 1), (2, 1), (2, 2), (4, 2)) for _ in
+                    range(rows))
+    body = zlib.compress(idat)
+    data = bytes(data[:33]) + png._chunk(b"IDAT", body) + png._chunk(
+        b"IEND", b"")
     p = tmp_path / "interlaced.png"
-    p.write_bytes(bytes(data))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        png.imread(str(p))
-    for ext in (".jpg", ".tif"):
-        q = tmp_path / f"x{ext}"
-        cv2.imwrite(str(q), np.zeros((4, 4, 3), np.uint8))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            png.imread(str(q))
+    p.write_bytes(data)
+    _assert_reads_as_cv2(p)
+    q = tmp_path / "x.jpg"
+    cv2.imwrite(str(q), np.zeros((16, 16, 3), np.uint8),
+                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(NotImplementedError, match="progressive"):
+        png.imread(str(q))
+    ifd = [(256, 3, 16), (257, 3, 16), (258, 3, 8), (259, 3, 1),
+           (262, 3, 1), (277, 3, 1), (322, 3, 16), (323, 3, 16),
+           (324, 4, 8), (325, 4, 256)]
+    tif = b"II*\x00" + struct.pack("<IH", 8, len(ifd)) + b"".join(
+        struct.pack("<HHII", tag, kind, 1, v) for tag, kind, v in ifd)
+    t = tmp_path / "tiled.tif"
+    t.write_bytes(tif + b"\x00" * 300)
+    with pytest.raises(NotImplementedError, match="tiled"):
+        png.imread(str(t))

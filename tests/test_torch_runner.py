@@ -45,7 +45,6 @@ from zebrapose_tpu_torch import cli
 from zebrapose_tpu_torch.codec.lut import CorrespondenceLUT
 from zebrapose_tpu_torch.config import ZebraConfig
 from zebrapose_tpu_torch.data.bop_writer import write_csv
-from zebrapose_tpu_torch.data.pipeline import CropDatasetHost
 from zebrapose_tpu_torch.eval import evaluate as tev
 from zebrapose_tpu_torch.eval.runner import (
     load_model,
@@ -309,6 +308,45 @@ def test_reference_pth_loads_strictly(tmp_path):
                                    rtol=0, atol=1e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("form", ["ddp_prefix", "no_aliases"])
+def test_reference_pth_variants_load_strictly(tmp_path, form):
+    """A train_v5/v6 DDP checkpoint (`module.` on every key) and a
+    concat_decoder = False one (no `resnet_layer_*` skip-tap aliases)
+    load strictly and give the unmodified checkpoint's forward."""
+    torch.manual_seed(0)
+    net = ReferenceNet(variant="v2", code_len=16).eval()
+    sd = net.state_dict()
+    if form == "ddp_prefix":
+        sd = {"module." + k: v for k, v in sd.items()}
+    else:
+        sd = {k: v for k, v in sd.items()
+              if not k.startswith("net.resnet.resnet_layer_")}
+        assert len(sd) < len(net.state_dict())
+    path = str(tmp_path / "ckpt.pth")
+    torch.save({"model_state_dict": sd}, path)
+    assert sorted(load_model_variables(path, "v2")) == \
+        sorted(net.state_dict())
+    model = load_model(ZebraConfig(), path, "v2", device="cpu")
+    x = torch.randn(1, 64, 64, 3)
+    with torch.no_grad():
+        got = model(x)
+        mask, entire, code = net(x.permute(0, 3, 1, 2))
+    for name, want in (("mask", mask), ("entire_mask", entire),
+                       ("code", code)):
+        np.testing.assert_allclose(got[name].numpy(),
+                                   want.permute(0, 2, 3, 1).numpy(),
+                                   rtol=0, atol=1e-5, err_msg=name)
+
+
+def test_reference_pth_missing_key_is_rejected(tmp_path):
+    sd = ReferenceNet(variant="v2", code_len=16).state_dict()
+    del sd["net.aspp.conv_1x1_4.weight"]
+    path = str(tmp_path / "ckpt.pth")
+    torch.save({"model_state_dict": sd}, path)
+    with pytest.raises(RuntimeError, match="conv_1x1_4.weight"):
+        load_model(ZebraConfig(), path, "v2", device="cpu")
+
+
 def _cli_setup(bop_tree, tmp_path, **extra):
     bop_path, det_path = bop_tree
     torch.manual_seed(2)
@@ -382,8 +420,7 @@ def test_cli_test_needs_cuda_unless_cpu_is_asked(bop_tree, tmp_path,
                   ckpt, "--output_dir", str(tmp_path / "out")])
 
 
-@pytest.mark.parametrize("what", ["int8", "refine", "debug", "orbax", "v3",
-                                  "training_dataset"])
+@pytest.mark.parametrize("what", ["int8", "refine", "debug", "orbax", "v3"])
 def test_unported_options_raise(bop_tree, tmp_path, what):
     bop_path, _ = bop_tree
     cfg = ZebraConfig.from_dict(dict(_cfg_dict(bop_path),
@@ -398,15 +435,7 @@ def test_unported_options_raise(bop_tree, tmp_path, what):
     if what == "v3":
         kw["variant"] = "v3"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "training_dataset":
-            # the training branch is ported; the pbr training splits'
-            # .jpg frames are not
-            CropDatasetHost("", "train_pbr", [str(tmp_path / "0.jpg")],
-                            [[""]], [[""]], [None],
-                            [{"bbox_visib": [0, 0, 8, 8]}],
-                            [{"cam_K": K_LIST}], is_train=True).collate([0])
-        else:
-            run_test(cfg, "ape", ckpt, str(tmp_path / "out"), **kw)
+        run_test(cfg, "ape", ckpt, str(tmp_path / "out"), **kw)
 
 
 def test_committed_lut_is_the_jax_partition_of_the_sphere(tmp_path):

@@ -12,6 +12,10 @@
   python -m zebrapose_tpu_torch score-bop --csv sub.csv --bop_path DIR \
       --dataset lmo [--split test] [--no_vsd] [--device cuda|cpu]
   python -m zebrapose_tpu_torch merge-csv a.csv b.csv --out all.csv
+  python -m zebrapose_tpu_torch generate-mesh-code --mesh obj.ply -d 2 \
+      -n 16 --corres_txt Class_CorresPoint000001.txt [--colored_ply c.ply]
+  python -m zebrapose_tpu_torch generate-labels --cfg cfg.txt \
+      --obj_name ape [--data_folder train_pbr] [--force]
 
 The flags are those of `python -m zebrapose_tpu train` / `test` /
 `vivo` / `score-bop` plus `--device` (default cuda; without CUDA a
@@ -23,9 +27,15 @@ and `--input_mode prefetch | device_cache` raise NotImplementedError, as
 multi-instance protocol over detections) writes the submission CSV that
 `score-bop` scores (BOP19 AR_vsd / AR_mssd / AR_mspd; the result is
 printed as JSON). The config file is the reference's flat `key = value`
-format. The other commands of the JAX package's CLI (among them
-`vivo-fleet` and `serve-exported --vivo`) are not ported yet
-(ROADMAP.md).
+format. `generate-mesh-code` (a mesh's hierarchical surface code:
+`Class_CorresPoint*.txt` and the colored mesh) and `generate-labels` (the
+`<split>_GT_v2` label images of one object over a BOP split, writing the
+surface code first when it is absent) are host work in both stacks:
+numpy and the port's C++ library (`native/`). They take no `--device` and
+touch no tensor on any device; the JAX package's commands never reach an
+accelerator either, so this is not a CPU fallback. The other commands of
+the JAX package's CLI (among them `vivo-fleet` and `serve-exported
+--vivo`) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -216,6 +226,22 @@ def main(argv=None):
     p_merge.add_argument("csvs", nargs="+")
     p_merge.add_argument("--out", required=True)
 
+    p_mesh = sub.add_parser("generate-mesh-code",
+                            help="hierarchical surface encoding of a mesh")
+    p_mesh.add_argument("--mesh", required=True)
+    p_mesh.add_argument("-d", "--divide_number", type=int, default=2)
+    p_mesh.add_argument("-n", "--levels", type=int, default=16)
+    p_mesh.add_argument("--corres_txt", required=True)
+    p_mesh.add_argument("--colored_ply", default=None)
+
+    p_lab = sub.add_parser("generate-labels",
+                           help="render GT_v2 label images for a split")
+    p_lab.add_argument("--cfg", required=True, help="reference-format config")
+    p_lab.add_argument("--obj_name", required=True)
+    p_lab.add_argument("--data_folder", default=None,
+                       help="defaults to cfg.training_data_folder")
+    p_lab.add_argument("--force", action="store_true")
+
     args = parser.parse_args(argv)
 
     if args.command == "train":
@@ -224,6 +250,26 @@ def main(argv=None):
         from zebrapose_tpu_torch.data.bop_writer import merge_csv
         merge_csv(args.csvs, args.out)
         print(f"merged {len(args.csvs)} files -> {args.out}")
+        return 0
+    if args.command == "generate-mesh-code":
+        from zebrapose_tpu_torch.tools.generate_gt import (
+            generate_mesh_surface_code,
+        )
+        lut, _ = generate_mesh_surface_code(
+            args.mesh, args.divide_number, args.levels, args.corres_txt,
+            args.colored_ply)
+        print(f"{lut.num_classes} classes, "
+              f"{int(lut.valid.sum())} non-empty -> {args.corres_txt}")
+        return 0
+    if args.command == "generate-labels":
+        from zebrapose_tpu_torch.config import ZebraConfig
+        from zebrapose_tpu_torch.tools.label_driver import generate_labels_cli
+        cfg = ZebraConfig.from_file(args.cfg)
+        n = generate_labels_cli(
+            cfg, args.obj_name,
+            data_folder=args.data_folder or cfg.training_data_folder,
+            force=args.force)
+        print(f"wrote {n} label images")
         return 0
 
     from zebrapose_tpu_torch.utils.device import resolve_device

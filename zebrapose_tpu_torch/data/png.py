@@ -14,8 +14,11 @@ package uses:
     or BGRA for colour, palette expanded (with alpha when it has tRNS).
 
 A missing or unreadable file gives None, as cv2 does. Interlaced (Adam7)
-PNG, JPEG and TIFF raise NotImplementedError (ROADMAP.md, queue A: the
-pbr splits are .jpg and itodd is .tif).
+files are read pass by pass: each of the 7 sub-images is unfiltered with
+its own row width and scattered into the image. `imread` is the one
+entry point for every image the port reads: it tells the format by the
+file's first bytes and hands JPEG to `data/jpeg.py` (BOP `train_pbr`
+rgb) and TIFF to `data/tiff.py` (itodd's gray frames).
 
 Scanline filters: None, Sub and Up rows are undone with numpy (Sub is a
 cumulative sum mod 256 along the row, a run of Up rows one down the
@@ -30,7 +33,6 @@ type given row by row (cv2 writes Sub on every row).
 
 from __future__ import annotations
 
-import os
 import struct
 import zlib
 from typing import Optional, Sequence, Union
@@ -44,7 +46,9 @@ IMREAD_COLOR = 1
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples
-_UNPORTED = "is not ported yet (see ROADMAP.md, queue A)"
+# Adam7 passes: first column, first row, column step, row step
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 # libpng's png_set_rgb_to_gray(png, 1, 0.299, 0.587) coefficients
 _GRAY_R = 29900 * 32768 // 100000
@@ -204,36 +208,51 @@ def decode(data: bytes) -> dict:
     if ihdr is None:
         raise PNGError("no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = ihdr
-    if interlace:
-        raise NotImplementedError("interlaced (Adam7) PNG " + _UNPORTED)
+    if interlace > 1:
+        raise PNGError(f"interlace method {interlace}")
     if ctype not in _CHANNELS or depth not in (1, 2, 4, 8, 16):
         raise PNGError(f"colour type {ctype} with bit depth {depth}")
     if ctype == 3 and palette is None:
         raise PNGError("palette image without PLTE")
     ch = _CHANNELS[ctype]
-    bits = ch * depth
-    stride = (w * bits + 7) // 8
     try:
-        raw = zlib.decompress(b"".join(idat))
+        raw = memoryview(zlib.decompress(b"".join(idat)))
     except zlib.error as e:
         raise PNGError(str(e)) from e
-    if len(raw) < h * (stride + 1):
-        raise PNGError("image data too short")
-    rows = np.frombuffer(raw, np.uint8, h * (stride + 1)).reshape(
-        h, stride + 1)
-    flat = unfilter(rows, max(1, bits // 8))
-    if depth == 16:
-        samples = flat.view(">u2").astype(np.uint16).reshape(h, w, ch)
-    elif depth == 8:
-        samples = flat.reshape(h, w, ch)
-    else:                                    # 1/2/4-bit gray or palette
-        per = 8 // depth
-        idx = np.unpackbits(flat, axis=1).reshape(h, stride * per, depth)
-        vals = (idx * (1 << np.arange(depth - 1, -1, -1,
-                                      dtype=np.uint8))).sum(-1)
-        samples = vals[:, :w, None].astype(np.uint8)
+    if not interlace:
+        samples, _ = _pass_samples(raw, h, w, ch, depth)
+    else:                                    # Adam7: 7 sub-images
+        samples = np.empty((h, w, ch), np.uint16 if depth == 16
+                           else np.uint8)
+        for x0, y0, dx, dy in _ADAM7:
+            ph, pw = -(-(h - y0) // dy), -(-(w - x0) // dx)
+            if ph <= 0 or pw <= 0:
+                continue                     # an empty pass has no bytes
+            samples[y0::dy, x0::dx], used = _pass_samples(raw, ph, pw, ch,
+                                                          depth)
+            raw = raw[used:]
     return {"samples": samples, "color_type": ctype, "bit_depth": depth,
             "palette": palette, "trns": trns}
+
+
+def _pass_samples(raw: bytes, h: int, w: int, ch: int, depth: int):
+    """The first h filtered rows of a w-pixel (sub-)image in `raw` ->
+    (samples [h, w, ch], bytes used)."""
+    stride = (w * ch * depth + 7) // 8
+    used = h * (stride + 1)
+    if len(raw) < used:
+        raise PNGError("image data too short")
+    rows = np.frombuffer(raw, np.uint8, used).reshape(h, stride + 1)
+    flat = unfilter(rows, max(1, ch * depth // 8))
+    if depth == 16:
+        return flat.view(">u2").astype(np.uint16).reshape(h, w, ch), used
+    if depth == 8:
+        return flat.reshape(h, w, ch), used
+    per = 8 // depth                         # 1/2/4-bit gray or palette
+    idx = np.unpackbits(flat, axis=1).reshape(h, stride * per, depth)
+    vals = (idx * (1 << np.arange(depth - 1, -1, -1,
+                                  dtype=np.uint8))).sum(-1)
+    return vals[:, :w, None].astype(np.uint8), used
 
 
 def _to_bgr_order(px: np.ndarray) -> np.ndarray:
@@ -301,18 +320,22 @@ def convert(png: dict, flags: int) -> np.ndarray:
 
 
 def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
-    """cv2.imread for PNG files; None when the file is missing or not a
-    readable PNG."""
-    ext = os.path.splitext(path)[1].lower()
-    if ext in (".jpg", ".jpeg", ".tif", ".tiff"):
-        raise NotImplementedError(f"reading {ext} images " + _UNPORTED)
+    """cv2.imread for PNG, JPEG and TIFF files; None when the file is
+    missing or not a readable image. The format is told by the file's
+    first bytes (the PNG signature, `\\xff\\xd8` for JPEG, `II*\\0` or
+    `MM\\0*` for TIFF), not by its name, as cv2 tells it; JPEG goes to
+    `data/jpeg.py`, TIFF to `data/tiff.py`."""
     try:
         with open(path, "rb") as f:
             data = f.read()
     except OSError:
         return None
-    if data.startswith((b"\xff\xd8", b"II*\x00", b"MM\x00*")):
-        raise NotImplementedError("reading JPEG / TIFF images " + _UNPORTED)
+    if data.startswith(b"\xff\xd8"):
+        from zebrapose_tpu_torch.data import jpeg
+        return jpeg.decode(data, flags)
+    if data.startswith((b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")):
+        from zebrapose_tpu_torch.data import tiff
+        return tiff.decode(data, flags)
     try:
         return convert(decode(data), flags)
     except PNGError:

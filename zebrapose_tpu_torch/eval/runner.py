@@ -40,15 +40,18 @@ def load_model_variables(ckpt_file: str, variant: str = "v2"
     """A checkpoint's weights as a state dict of the port's ZebraPoseNet
     (whose names are the reference checkpoints' keys): a compact `.npz`
     (`utils/compact_ckpt.py`, converted by `models/convert.py`) or a
-    reference-format `.pth` / `.pt`, taken as it is."""
+    reference-format `.pth` / `.pt` (`models/convert.py::
+    reference_state_dict`: DDP prefixes stripped, absent skip-tap aliases
+    filled)."""
     if ckpt_file.endswith(".npz"):
         from zebrapose_tpu_torch.models.convert import variables_to_state_dict
         from zebrapose_tpu_torch.utils.compact_ckpt import load_compact
         variables, _ = load_compact(ckpt_file)
         return variables_to_state_dict(variables, variant)
     if ckpt_file.endswith((".pth", ".pt")):
+        from zebrapose_tpu_torch.models.convert import reference_state_dict
         ckpt = torch.load(ckpt_file, map_location="cpu", weights_only=True)
-        return ckpt.get("model_state_dict", ckpt)
+        return reference_state_dict(ckpt.get("model_state_dict", ckpt))
     raise NotImplementedError(
         f"checkpoint {ckpt_file!r}: orbax checkpoint directories "
         + _UNPORTED + "; pass a .npz or a reference .pth")

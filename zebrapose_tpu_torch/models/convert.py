@@ -116,11 +116,29 @@ def variables_to_state_dict(variables: Dict[str, Any], variant: str = "v2"
                                   "(see ROADMAP.md, queue A)")
     eb = _StateDictWriter(variables)
     _walk_reference(eb)
-    for src, dst in _CONCAT_ALIASES:
-        for k in [k for k in eb.sd if k.startswith(src)]:
-            eb.sd[dst + k[len(src):]] = eb.sd[k]
     return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in eb.sd.items()}
+            for k, v in _fill_aliases(eb.sd).items()}
+
+
+def _fill_aliases(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """Give every canonical stem / layer1 / layer2 key its skip-tap alias
+    (`_CONCAT_ALIASES`) where the alias is absent; in place."""
+    for src, dst in _CONCAT_ALIASES:
+        for k in [k for k in sd if k.startswith(src)]:
+            sd.setdefault(dst + k[len(src):], sd[k])
+    return sd
+
+
+def reference_state_dict(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """A reference checkpoint's `model_state_dict` as the port's model
+    loads it strictly: DDP `module.` prefixes stripped (train_v5/v6
+    checkpoints; `convert_torch.py::strip_ddp_prefix` in the JAX
+    package) and absent skip-tap aliases filled from the canonical
+    `net.resnet.resnet.*` family (a checkpoint saved with
+    concat_decoder = False has no `resnet_layer_*` keys). Any other
+    missing key is left for the strict load to reject."""
+    return _fill_aliases({k[len("module."):] if k.startswith("module.")
+                          else k: v for k, v in sd.items()})
 
 
 # torchvision resnet34 key prefix -> the port's module (the stem and the
