@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's inference, training and BOP paths on one card.
+"""Drive the PyTorch port's inference, training, BOP, data-preparation,
+refinement and model-family paths on one card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline OLD.cu --baseline-intrinsics fxfycxcy
@@ -65,6 +66,22 @@ check exits non-zero. Phases:
                  `generate-labels`, and `train --from_scratch --bf16` on it
                  for 40 steps with one pose validation (the kernel's
                  launches counted, the .jpg and label reads counted)
+ 11. families    contour refinement and the other model families:
+                 the border follower on the committed masks against
+                 cv2's contours; the refiner on the committed sphere
+                 frames against the JAX package's refined poses; `test`
+                 with refine = True over phase 7's tree with the committed
+                 v2 checkpoint at b32 (recall against the JAX package's,
+                 the refined share, the kernel's launches, seconds by
+                 stage); the base-4 surface code (`generate-mesh-code -d 4
+                 -n 8`, against the JAX package's SHA) and labels
+                 (`generate-labels`) of phase 8's split; then v3,
+                 ResNet50 and base 4 (CE) at 256² crops: a b2 forward
+                 card vs CPU, the b32 bf16 forward's time, `train
+                 --from_scratch --bf16` for 40 steps with one pose
+                 validation (the kernel's launches counted), its peak
+                 memory, ms a step in turns with v2 (v2, family, family,
+                 v2), `test` on the checkpoint (v3 refined)
 
 `--write-tree DIR` writes phase 7's tree with phase 8's training split
 and phase 9's inputs (and their configs) on the CPU and stops: the JAX
@@ -146,6 +163,26 @@ JAX_CPU_LABELS = {
 SYM_INFO = {"symmetries_continuous": [{"axis": [0, 0, 1],
                                        "offset": [0, 0, 0]}]}
 PREP_FRAMES, PREP_STEPS, PREP_BATCH = 4, 40, 32
+
+# the families phase: the refiner's committed fixtures, with the JAX
+# package's figures in their manifest.json (`python
+# tests/data/torch_refine/make_fixtures.py`, JAX_PLATFORMS=cpu: the
+# refined `test`'s metrics over `--write-tree DIR`, JAX_CPU_REFINE, and
+# the SHA-256 of its base-4 surface code of the sphere); each family's
+# config keys over phase 8's training config and its --variant; the
+# training steps (one pose validation at the last) and the frames its
+# checkpoint is tested on
+REFINE_FIXTURES = os.path.join(HERE, "tests", "data", "torch_refine")
+FAMILIES = {
+    "v3": {"variant": "v3", "cfg": {}},
+    "resnet50": {"variant": "v2", "cfg": {"resnet_layer": 50}},
+    "base4": {"variant": "v1", "cfg": {
+        "divide_number_each_itration": 4, "number_of_itration": 8,
+        "BinaryCode_Loss_Type": "CE",
+        "use_histgramm_weighted_binary_loss": False}},
+}
+FAMILY_STEPS, FAMILY_TEST_FRAMES = 40, 32
+FAMILY_TIMED_STEPS, FAMILY_TIMED_WARM = 15, 5
 
 # H100 peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # (FP32 non-tensor FLOP/s, HBM bytes/s)
@@ -1684,6 +1721,474 @@ def _symmetric_label_diff(root, folder):
     return apart, fg, h.hexdigest() == JAX_CPU_LABELS["continuous_z"]
 
 
+def contour_fixture():
+    """The committed border-follower fixture: a list of (mask [h, w]
+    bool, cv2's contours as a list of [n, 2] int32) in file order."""
+    z = np.load(os.path.join(REFINE_FIXTURES, "contours.npz"))
+    bits = np.split(z["bits"], np.cumsum(z["bit_lens"])[:-1])
+    contours = np.split(z["points"], np.cumsum(z["lens"])[:-1])
+    out, c = [], 0
+    for (h, w), b, n in zip(z["shapes"], bits, z["n_contours"]):
+        mask = np.unpackbits(b, count=int(h) * int(w)).reshape(h, w) > 0
+        out.append((mask, contours[c:c + n]))
+        c += n
+    return out
+
+
+def refine_fixture():
+    """The committed refiner fixture: per frame (contour [n, 2] int32,
+    start R0, t0, the JAX package's refined R, t, the frame's R_gt, t_gt;
+    float64)."""
+    z = np.load(os.path.join(REFINE_FIXTURES, "refine.npz"))
+    pts = np.split(z["points"], np.cumsum(z["lens"])[:-1])
+    return [dict(contour=p, **{k: z[k][i] for k in
+                               ("R0", "t0", "R", "t", "R_gt", "t_gt")})
+            for i, p in enumerate(pts)]
+
+
+def refine_manifest():
+    with open(os.path.join(REFINE_FIXTURES, "manifest.json")) as f:
+        return json.load(f)
+
+
+def family_config(root, name):
+    """The training config of family `name` in the tree under `root`:
+    phase 8's `lmo_ape_train.txt` with the family's keys
+    (`FAMILIES[name]["cfg"]`) in place of its own; for base 4 the tree
+    is `write_base4_tree`'s. Returns its path."""
+    keys = FAMILIES[name]["cfg"]
+    with open(os.path.join(root, "lmo_ape_train.txt")) as f:
+        lines = [ln for ln in f.read().splitlines()
+                 if ln.split("=")[0].strip() not in keys]
+    path = os.path.join(root, f"lmo_ape_{name}.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines + [f"{k} = {v}" for k, v in keys.items()])
+                + "\n")
+    return path
+
+
+def write_base4_tree(tmp):
+    """`<tmp>/bop4`: phase 7's tree (`<tmp>/bop`) with its splits, mesh
+    and camera linked in, and its own configs (`lmo_ape.txt`,
+    `lmo_ape_train.txt` with bop_path set to it); the base-4 surface code
+    and labels are made in it by the commands. Returns its root."""
+    src, root = os.path.join(tmp, "bop"), os.path.join(tmp, "bop4")
+    os.makedirs(os.path.join(root, "lmo"), exist_ok=True)
+    for name in ("models", "models_eval", "camera.json", "test",
+                 "train_real"):
+        os.symlink(os.path.join(src, "lmo", name),
+                   os.path.join(root, "lmo", name))
+    for cfg in ("lmo_ape.txt", "lmo_ape_train.txt"):
+        with open(os.path.join(src, cfg)) as f:
+            text = f.read().replace(f"bop_path = {src}\n",
+                                    f"bop_path = {root}\n")
+        with open(os.path.join(root, cfg), "w") as f:
+            f.write(text)
+    return root
+
+
+def _phase_timing(run_dir):
+    with open(os.path.join(run_dir, "log.txt")) as f:
+        (timing,) = [json.loads(ln.split(" ", 1)[1]) for ln in f
+                     if ln.startswith("timing ")]
+    return timing
+
+
+def _logged_metrics(run_dir):
+    with open(os.path.join(run_dir, "log.txt")) as f:
+        return {k: float(v) for k, v in (
+            ln.split() for ln in f.read().splitlines()
+            if ln.startswith(("ADD", "ADD-S")) and len(ln.split()) == 2)}
+
+
+def refine_test(dev, card, cfg_path, out, extra=()):
+    """`test` with refine = True (cli.main, this process): returns
+    (metrics, timing by stage, kernel launches, wall seconds, CSV rows)."""
+    import torch
+
+    from zebrapose_tpu_torch import cli
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+
+    refine_cfg = cfg_path[:-4] + "_refine.txt"
+    with open(cfg_path) as f, open(refine_cfg, "w") as g:
+        g.write(f.read() + "refine = True\n")
+    minimal_epnp_hypotheses.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["test", "--cfg", refine_cfg, "--obj_name", "ape",
+                   "--batch_size", "32", "--output_dir", out, "--device",
+                   str(dev)] + list(extra))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = minimal_epnp_hypotheses.launches
+    check(rc == 0, f"test with refine = True returned {rc}")
+    (run_dir,) = os.listdir(out)
+    run_dir = os.path.join(out, run_dir)
+    with open(os.path.join(run_dir, "pose_result_bop", "lmo_ape.csv")) as f:
+        rows = f.read().splitlines()[1:]
+    return (_logged_metrics(run_dir), _phase_timing(run_dir), launches,
+            wall, rows)
+
+
+def families_phase(dev, card, tmp):
+    """Phase 11 (see the module docstring) over phase 7's tree and phase
+    8's split under `tmp`. Returns its record."""
+    from zebrapose_tpu_torch import cli, native
+    from zebrapose_tpu_torch.codec.lut import load_correspondence_lut
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "bop")
+    rec = {"card": card, "families": {}}
+    manifest = refine_manifest()
+
+    # 1. the border follower against cv2's contours (committed)
+    fixture = contour_fixture()
+    n_contours = 0
+    for i, (mask, want) in enumerate(fixture):
+        got = native.find_external_contours(mask)
+        check(len(got) == len(want) and all(
+            np.array_equal(g, w) for g, w in zip(got, want)),
+            f"border follower: mask {i} differs from cv2's contours")
+        n_contours += len(want)
+    pts, faces = uv_sphere()
+    faces = faces.astype(np.int32)
+    hit = sphere_frame(np.random.default_rng(0), pixel_rays())[1]
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        native.find_external_contours(hit)
+        times.append((time.perf_counter() - t0) * 1e3)
+    follow_ms = float(np.median(times))
+    log(f"[families] border follower: {len(fixture)} committed masks, "
+        f"{n_contours} contours equal to cv2's (points, order, start, "
+        f"direction); {follow_ms:.3f} ms for a 480x640 sphere silhouette "
+        "(median of 10) on the card machine's host")
+    rec.update(contours_equal=n_contours, follow_ms=follow_ms)
+
+    # 2. the refiner on the committed inputs against the JAX package's
+    # refined poses
+    worst_r = worst_t = 0.0
+    refine_ms = []
+    for i, fr in enumerate(refine_fixture()):
+        t0 = time.perf_counter()
+        R, t = native.edge_refine(pts, faces, K_LMO.astype(np.float64),
+                                  640, 480, fr["contour"], fr["R0"],
+                                  fr["t0"])
+        refine_ms.append((time.perf_counter() - t0) * 1e3)
+        worst_r = max(worst_r, float(np.abs(R - fr["R"]).max()))
+        worst_t = max(worst_t, float(np.abs(t - fr["t"]).max()))
+    equal = worst_r == 0.0 and worst_t == 0.0
+    log(f"[families] edge_refine on {len(refine_ms)} committed sphere "
+        f"frames (10 iterations, 480x640 renders of {len(faces)} faces): "
+        + ("bit-equal to the JAX package's refined poses" if equal else
+           f"largest difference from the JAX package's: R {worst_r:.3e}, "
+           f"t {worst_t:.3e} mm")
+        + f"; {np.median(refine_ms):.1f} ms a frame (median; host, "
+        f"{_cxx_version()})")
+    check(worst_r <= 1e-6 and worst_t <= 1e-6,
+          "edge_refine differs from the JAX package's beyond 1e-6")
+    rec.update(refine_equal=equal, refine_max_diff=[worst_r, worst_t],
+               refine_ms=refine_ms)
+
+    # 3. `test` with refine = True over phase 7's tree, the committed v2
+    # checkpoint (its entire-mask head)
+    metrics, timing, launches, wall, rows = refine_test(
+        dev, card, os.path.join(root, "lmo_ape.txt"),
+        os.path.join(tmp, "out_refine"), ["--ckpt_file", CKPT])
+    n = TREE_FRAMES
+    want = manifest["jax_cpu_refine"]["ADD_recall_0.1d"] - RECALL_SLACK
+    other = wall - sum(timing[k] for k in (
+        "prepare_s", "load_model_s", "inference_s", "refine_s",
+        "pose_errors_s", "write_s"))
+
+    def share(s):
+        return f"{s:.2f} s ({100 * s / wall:.1f}%)"
+    log(f"[families] `test` with refine = True, v2 checkpoint, b32, {n} "
+        f"frames: ADD recall@0.1d {metrics['ADD_recall_0.1d']:.4f} (JAX on "
+        f"a CPU {manifest['jax_cpu_refine']['ADD_recall_0.1d']:.4f}, gate "
+        f">= {want:.4f}; unrefined phase 7: see [runner]), 0.05d "
+        f"{metrics['ADD_recall_0.05d']:.4f}, 0.02d "
+        f"{metrics['ADD_recall_0.02d']:.4f}; {timing['refined']} of {n} "
+        f"frames refined ({100 * timing['refined'] / n:.1f}%); "
+        f"{launches} kernel launches; on {card}")
+    log(f"[families] where the refined `test`'s {wall:.2f} s went: walk + "
+        f"LUT + mesh {share(timing['prepare_s'])}; model load "
+        f"{share(timing['load_model_s'])}; run_inference "
+        f"{share(timing['inference_s'])}; refinement on the host "
+        f"{share(timing['refine_s'])}, "
+        f"{timing['refine_s'] / max(timing['refined'], 1):.3f} s a refined "
+        f"frame; pose errors {share(timing['pose_errors_s'])}; CSV "
+        f"{share(timing['write_s'])}; the rest {share(other)}")
+    check(len(rows) == n, f"refined test wrote {len(rows)} CSV rows")
+    check(launches >= -(-n // 32), "refined test: the kernel was not "
+          "launched on every batch")
+    check(timing["refined"] > 0, "refined test refined no frame")
+    check(metrics["ADD_recall_0.1d"] >= want,
+          "refined ADD recall@0.1d below the JAX package's less "
+          f"{RECALL_SLACK}")
+    rec["refine_test"] = {"metrics": metrics, "timing": timing,
+                          "launches": launches, "wall_s": wall,
+                          "frames": n}
+
+    # 4. base-4 surface code and labels by the port's own commands
+    root4 = write_base4_tree(tmp)
+    ply = os.path.join(root, "lmo", "models", "obj_000001.ply")
+    lut_txt = os.path.join(root4, "lmo", "models_GT_color",
+                           "Class_CorresPoint000001.txt")
+    t0 = time.perf_counter()
+    rc = cli.main(["generate-mesh-code", "--mesh", ply, "-d", "4", "-n",
+                   "8", "--corres_txt", lut_txt])
+    code_s = time.perf_counter() - t0
+    check(rc == 0, f"generate-mesh-code -d 4 returned {rc}")
+    with open(lut_txt, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    lut4 = load_correspondence_lut(lut_txt)
+    same = sha == manifest["base4_lut_sha256"]
+    if not same:
+        vc = native.partition_mesh(pts, 4, 8, seed=0)
+        counts = np.bincount(vc, minlength=4 ** 8)
+        lo = len(pts) // 4 ** 8
+        balanced = bool(counts.min() >= lo and counts.max() <= lo + 1)
+        log(f"[families] the base-4 surface code DIFFERS from the JAX "
+            f"package's ({sha[:16]}); every class holds floor/ceil(V/4^8) "
+            f"vertices: {balanced}")
+        check(balanced, "the base-4 partition breaks its invariants")
+    cfg4 = family_config(root4, "base4")
+    t0 = time.perf_counter()
+    rc = cli.main(["generate-labels", "--cfg", cfg4, "--obj_name", "ape",
+                   "--data_folder", "train_real"])
+    labels_s = time.perf_counter() - t0
+    check(rc == 0, f"generate-labels (base 4) returned {rc}")
+    n_labels = len(os.listdir(os.path.join(root4, "lmo", "train_real_GT_v2",
+                                           "000001")))
+    log(f"[families] base 4: generate-mesh-code -d 4 -n 8 on the sphere in "
+        f"{code_s:.2f} s ({int(lut4.valid.sum())} of {4 ** 8} classes "
+        f"hold vertices), text "
+        + ("equal to the JAX package's" if same else "NOT the JAX "
+           "package's") + f"; generate-labels over train_real: {n_labels} "
+        f"label images in {labels_s:.2f} s")
+    check(n_labels == TRAIN_FRAMES, "generate-labels missed frames")
+    rec["base4"] = {"lut_equal": same, "code_s": code_s,
+                    "labels_s": labels_s, "labels": n_labels}
+
+    # 5. each family at full width, timed in turns with phase 8's v2
+    from zebrapose_tpu_torch.config import ZebraConfig
+
+    v2_res = timed_setup(ZebraConfig.from_file(
+        os.path.join(root, "lmo_ape_train.txt")), "v2",
+        os.path.join(tmp, "timed_v2"), dev)
+    try:
+        for name, fam in FAMILIES.items():
+            froot = root4 if name == "base4" else root
+            rec["families"][name] = family_run(dev, card, tmp, froot, name,
+                                               fam, v2_res)
+    finally:
+        close_setup(v2_res)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[families] phase 11 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def _cxx_version():
+    from zebrapose_tpu_torch.ops._build import _cxx
+
+    return subprocess.run([_cxx(), "--version"], capture_output=True,
+                          text=True).stdout.splitlines()[0]
+
+
+def timed_setup(cfg, variant, out_dir, dev):
+    """A bf16 training setup of `cfg` whose iterator serves 4 batches
+    collated once, from memory (`_Batches`), for `trainer.timed_steps`."""
+    from zebrapose_tpu_torch.train import trainer
+
+    res = trainer.build_train_setup(
+        cfg, "ape", out_dir, variant=variant, pretrained_backbone=None,
+        bf16=True, cache_images=True, log_freq=FAMILY_STEPS, device=dev)
+    batches = [next(res.train_iter) for _ in range(4)]
+    res.train_iter.close()
+    res.train_iter = _Batches(batches)
+    return res
+
+
+def close_setup(res):
+    """Close `timed_setup`'s iterator, checkpoints and logger, and hand
+    the cached device memory back."""
+    import torch
+
+    res.train_iter.close()
+    res.ckpt.close()
+    res.logger.close()
+    torch.cuda.empty_cache()
+
+
+def family_run(dev, card, tmp, root, name, fam, v2_res):
+    """Phase 11, item 5, for one family: the forward card vs CPU, the
+    b32 forward's time, `train --from_scratch --bf16` with one pose
+    validation, its peak memory, ms a step in turns with `v2_res` (phase
+    8's v2 setup), `test` on its checkpoint."""
+    import torch
+
+    from zebrapose_tpu_torch import cli
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+    from zebrapose_tpu_torch.train import trainer
+
+    cfg_path = family_config(root, name)
+    cfg = ZebraConfig.from_file(cfg_path)
+    kw = dict(binary_code_length=cfg.number_of_itration,
+              base=cfg.divide_number_each_itration, variant=fam["variant"],
+              resnet_layers=cfg.resnet_layer)
+    out = {"variant": fam["variant"], "config": fam["cfg"]}
+
+    # one forward of seeded weights, f32 with TF32 off, card vs CPU, b2
+    torch.manual_seed(11)
+    model = ZebraPoseNet(**kw).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    x = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(2, 256, 256, 3)).astype(np.float32))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            on_cpu = model(x)
+            model.to(dev)
+            on_card = {k: v.cpu() for k, v in model(x.to(dev)).items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    err = max(float((on_card[k] - on_cpu[k]).abs().max()) for k in on_cpu)
+    scale = max(1.0, max(float(v.abs().max()) for v in on_cpu.values()))
+    shapes = {k: list(v.shape) for k, v in on_card.items()}
+    # b32 forward on the card, bf16 channels-last as the test path runs it
+    model = model.to(torch.bfloat16).to(memory_format=torch.channels_last)
+    xb = torch.from_numpy(np.random.default_rng(13).normal(
+        size=(32, 256, 256, 3)).astype(np.float32)).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        fwd_ms, fwd_lo, fwd_hi = time_ms(lambda: model(xb), iters=10,
+                                         warmup=3)
+    del model, xb
+    torch.cuda.empty_cache()
+    log(f"[families] {name}: {n_params} parameters; outputs {shapes}; one "
+        f"b2 256² forward of seeded weights, f32 (TF32 off), card vs CPU: "
+        f"max abs err {err:.2e} (largest |logit| {scale:.1f}); b32 bf16 "
+        f"forward {fwd_ms:.2f} ms (min {fwd_lo:.2f}, max {fwd_hi:.2f}; CUDA "
+        f"events, median of 10) on {card}")
+    check(err <= 1e-3 * scale, f"{name}: the card's f32 logits differ from "
+          "the CPU's beyond 1e-3 of the largest")
+    out.update(params=n_params, fwd_err=err, fwd_scale=scale,
+               fwd_b32_ms=fwd_ms, shapes=shapes)
+
+    # train from scratch, bf16, b32, one pose validation at the end
+    run_out = os.path.join(tmp, f"runs_{name}")
+    run = os.path.join(run_out, "lmo_ape")
+    minimal_epnp_hypotheses.launches = 0          # this family's training
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "--cfg", cfg_path, "--obj_name", "ape",
+                   "--variant", fam["variant"], "--from_scratch", "--bf16",
+                   "--cache_images", "--log_freq", str(FAMILY_STEPS),
+                   "--max_steps", str(FAMILY_STEPS), "--output_dir",
+                   run_out, "--device", str(dev)])
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = minimal_epnp_hypotheses.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(rc == 0, f"{name}: train returned {rc}")
+    rows = _metrics_rows(run)
+    losses = [r["value"] for r in rows if r["tag"] == "train/step_loss_total"]
+    timing = {r["tag"][len("timing/"):]: r["value"] for r in rows
+              if r["tag"].startswith("timing/")}
+    recalls = [r["value"] for r in rows if r["tag"] == "val/ADD_recall_0.1d"]
+    val_batches = -(-TREE_FRAMES // 16)
+    ckpts = sorted(os.listdir(os.path.join(run, "checkpoints", "steps")))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    step_ms = 1e3 * (timing["fit_s"] - timing["val_s"] - timing["log_s"]) \
+        / timing["steps"]
+    log(f"[families] {name}: `train --from_scratch --bf16 --variant "
+        f"{fam['variant']}` b{TRAIN_BATCH}, {len(losses)} steps in "
+        f"{wall:.1f} s: loss_total mean of the first 5 steps {first:.4f}, "
+        f"of the last 5 {last:.4f}; val ADD recall@0.1d {recalls}; "
+        f"{launches} kernel launches in validation ({val_batches} batches of"
+        f" 16); checkpoints {ckpts}; {step_ms:.1f} ms a step in the command "
+        f"(cuDNN's search included); peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB; on {card}")
+    check(len(losses) == FAMILY_STEPS and all(np.isfinite(losses)),
+          f"{name}: a training loss is missing or not finite")
+    check(last < first, f"{name}: the loss did not fall")
+    check(len(recalls) == 1 and launches >= val_batches,
+          f"{name}: validation did not launch the kernel on every batch")
+    check(ckpts == [f"step_{FAMILY_STEPS}.pth"], f"{name}: no checkpoint")
+    out.update(losses_first5=first, losses_last5=last, recalls=recalls,
+               launches=launches, train_wall_s=wall, train_step_ms=step_ms,
+               peak_bytes=peak)
+
+    # the step alone, frames from memory, in turns with phase 8's v2
+    # (v2, family, family, v2): the eager step is half host-bound and the
+    # host's speed drifts, so the ratio is taken within the turns
+    res = timed_setup(cfg, fam["variant"], os.path.join(tmp, f"timed_{name}"),
+                      dev)
+    runs = {"v2": [], name: []}
+    try:
+        check(res.state.histogram.shape == (cfg.number_of_itration,),
+              f"{name}: the histogram is not one entry a digit")
+        for which in ("v2", name, name, "v2"):
+            t = {}
+            trainer.timed_steps(v2_res if which == "v2" else res,
+                                n_steps=FAMILY_TIMED_STEPS,
+                                warm=FAMILY_TIMED_WARM, timing=t)
+            runs[which].append(t["host_ms"])
+    finally:
+        close_setup(res)
+        del res
+    ms, v2_ms = float(np.median(runs[name])), float(np.median(runs["v2"]))
+    log(f"[families] {name}: timed_steps bf16 b{TRAIN_BATCH} (frames from "
+        f"memory), {FAMILY_TIMED_STEPS} steps after {FAMILY_TIMED_WARM} a "
+        f"turn, turns v2 {name} {name} v2: {name} "
+        + " ".join(f"{x:.2f}" for x in runs[name]) + " ms a step, v2 "
+        + " ".join(f"{x:.2f}" for x in runs["v2"]) + f" ms (host clock, "
+        f"the last step read back): {ms / v2_ms:.2f}x v2; on {card}")
+    out["timed"] = {"ms": runs[name], "v2_ms": runs["v2"],
+                    "v2_ratio": ms / v2_ms}
+
+    # `test` on the checkpoint (v3 with refine = True)
+    ckpt = os.path.join(run, "checkpoints", "steps", ckpts[0])
+    test_out = os.path.join(tmp, f"test_{name}")
+    extra = ["--ckpt_file", ckpt, "--variant", fam["variant"],
+             "--max_samples", str(FAMILY_TEST_FRAMES)]
+    if name == "v3":
+        metrics, timing, launches, wall, rows = refine_test(
+            dev, card, cfg_path, test_out, extra)
+        log(f"[families] v3: `test` with refine = True on its checkpoint, "
+            f"{len(rows)} frames: {timing['refined']} refined, refinement "
+            f"{timing['refine_s']:.2f} s, ADD recall@0.1d "
+            f"{metrics['ADD_recall_0.1d']:.4f} (not gated: "
+            f"{FAMILY_STEPS} steps from scratch), {launches} kernel "
+            f"launches, {wall:.1f} s")
+    else:
+        minimal_epnp_hypotheses.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["test", "--cfg", cfg_path, "--obj_name", "ape",
+                       "--batch_size", "32", "--output_dir", test_out,
+                       "--device", str(dev)] + extra)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = minimal_epnp_hypotheses.launches
+        check(rc == 0, f"{name}: test returned {rc}")
+        (run_dir,) = os.listdir(test_out)
+        with open(os.path.join(test_out, run_dir, "pose_result_bop",
+                               "lmo_ape.csv")) as f:
+            rows = f.read().splitlines()[1:]
+        metrics = _logged_metrics(os.path.join(test_out, run_dir))
+        log(f"[families] {name}: `test` on its checkpoint, {len(rows)} "
+            f"frames: ADD recall@0.1d {metrics['ADD_recall_0.1d']:.4f} (not "
+            f"gated: {FAMILY_STEPS} steps from scratch), {launches} kernel "
+            f"launches, {wall:.1f} s")
+    check(len(rows) == FAMILY_TEST_FRAMES and launches >= 1,
+          f"{name}: test on the checkpoint")
+    out["test"] = {"metrics": metrics, "launches": launches, "wall_s": wall}
+    return out
+
+
 def build_baseline(path):
     """Compile another version of csrc/epnp_minimal.cu with the port's
     flags into the build directory; its zp_epnp_minimal entry point."""
@@ -2146,12 +2651,14 @@ def main(argv=None) -> int:
     log("[timing] library_ms: null -- no single PyTorch call computes a "
         "minimal-set EPnP")
 
-    # ---- 7. the test runner, 8. the training path, 9. BOP, 10. prep ---
+    # ---- 7. the test runner, 8. the training path, 9. BOP, 10. prep,
+    # 11. refinement and the model families ----------------------------
     with tempfile.TemporaryDirectory() as tmp:
         runner = runner_phase(dev, card, tmp)
         train = train_phase(dev, card, tmp)
         bop = bop_phase(dev, card, tmp)
         prep = prep_phase(dev, card, tmp, runner["png_decode_ms"])
+        families = families_phase(dev, card, tmp)
 
     main_n = 256 * cfg.n_hypotheses                  # the b256 stage
     rec = {"name": "minimal_epnp_hypotheses", "route": "cuda",
@@ -2170,8 +2677,14 @@ def main(argv=None) -> int:
                **{f"runner_{k}": v["launches"]
                   for k, v in runner["runs"].items()},
                "train": train["launches"], "vivo": bop["launches"],
-               "prep": prep["launches"]},
+               "prep": prep["launches"],
+               "refine_test": families["refine_test"]["launches"],
+               **{f"train_{k}": v["launches"]
+                  for k, v in families["families"].items()},
+               **{f"test_{k}": v["test"]["launches"]
+                  for k, v in families["families"].items()}},
            "runner": runner, "train": train, "bop": bop, "prep": prep,
+           "families": families,
            "card": card}
     if ab:
         rec["ab"] = {str(n): v for n, v in ab.items()}

@@ -422,19 +422,27 @@ def test_cli_test_needs_cuda_unless_cpu_is_asked(bop_tree, tmp_path,
 
 @pytest.mark.parametrize("what", ["int8", "refine", "debug", "orbax", "v3"])
 def test_unported_options_raise(bop_tree, tmp_path, what):
+    """What the port still refuses, each by its ROADMAP item: int8 (A6),
+    debug dumps (A7; with refine = True too: the refiner's debug frames
+    under --debug), orbax directories (A7); and, as the JAX package
+    does, v3 on ResNet50."""
     bop_path, _ = bop_tree
-    cfg = ZebraConfig.from_dict(dict(_cfg_dict(bop_path),
-                                     refine=what == "refine"))
+    cfg = ZebraConfig.from_dict(dict(
+        _cfg_dict(bop_path), refine=what == "refine",
+        resnet_layer=50 if what == "v3" else 34))
     ckpt = str(tmp_path / "ckpt.pth")
     torch.save(ReferenceNet("v2", 16).state_dict(), ckpt)
     kw = {"device": "cpu"}
-    if what in ("int8", "debug"):
-        kw[what] = True
+    if what in ("int8", "debug", "refine"):
+        kw["int8" if what == "int8" else "debug"] = True
     if what == "orbax":
         ckpt = str(tmp_path)
     if what == "v3":
         kw["variant"] = "v3"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    match = {"int8": "ROADMAP.*A6", "refine": "ROADMAP.*A7",
+             "debug": "ROADMAP.*A7", "orbax": "ROADMAP.*A7",
+             "v3": "resnet_layers=34"}[what]
+    with pytest.raises(NotImplementedError, match=match):
         run_test(cfg, "ape", ckpt, str(tmp_path / "out"), **kw)
 
 

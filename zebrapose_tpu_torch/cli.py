@@ -121,12 +121,12 @@ def _add_train(sub):
 
 def _train(args) -> int:
     if args.qat:
-        raise NotImplementedError("--qat " + _UNPORTED)
+        raise NotImplementedError("--qat " + _UNPORTED + " (A6)")
     if args.multihost:
-        raise NotImplementedError("--multihost " + _UNPORTED)
+        raise NotImplementedError("--multihost " + _UNPORTED + " (A8)")
     if args.input_mode != "stream":
         raise NotImplementedError(f"--input_mode {args.input_mode} "
-                                  + _UNPORTED)
+                                  + _UNPORTED + " (A8)")
     from zebrapose_tpu_torch.config import ZebraConfig
     from zebrapose_tpu_torch.train.trainer import build_train_setup, fit
     from zebrapose_tpu_torch.utils.device import resolve_device

@@ -154,10 +154,13 @@ def run_inference(dataset: CropDatasetHost, eval_step,
                   batch_size: int = 16, seed: int = 0,
                   num_workers: int = 4, device=None,
                   draws_for: Optional[Callable[[int], RansacDraws]] = None,
-                  timing: Optional[Dict[str, float]] = None):
+                  timing: Optional[Dict[str, float]] = None,
+                  collect_masks: bool = False,
+                  collect_codes: bool = False):
     """Run the eval step over the dataset: (R [N,3,3], t [N,3], success
-    [N]) as numpy. (The JAX version's mask and code outputs serve the
-    refinement pass and debug dumps, which are not ported yet.)
+    [N]) as numpy, plus (visible masks, entire masks) [N,h,w] with
+    `collect_masks` (a step made with return_masks=True), plus the codes
+    [N,h,w,n_bits] with `collect_codes` (return_codes=True).
 
     A producer thread collates batches into a bounded queue (PNG decode
     on a pool of `num_workers` threads; 0 = inline), the last batch is
@@ -182,6 +185,8 @@ def run_inference(dataset: CropDatasetHost, eval_step,
     Rs = np.zeros((n, 3, 3), np.float32)
     ts = np.zeros((n, 3), np.float32)
     ok = np.zeros((n,), bool)
+    extra = ([] if not collect_masks else [[], []]) + \
+        ([] if not collect_codes else [[]])
 
     q: "queue_mod.Queue" = queue_mod.Queue(maxsize=2)
     stop = threading.Event()
@@ -221,6 +226,8 @@ def run_inference(dataset: CropDatasetHost, eval_step,
         Rs[start:start + m] = out[0][:m].cpu().numpy()
         ts[start:start + m] = out[1][:m].cpu().numpy()
         ok[start:start + m] = out[2][:m].cpu().numpy()
+        for got, x in zip(extra, out[4:]):
+            got.extend(x[:m].cpu().numpy())
         clock["fetch_s"] += time.perf_counter() - t0
 
     pending = None
@@ -271,7 +278,7 @@ def run_inference(dataset: CropDatasetHost, eval_step,
         if spans:
             timing["device_s"] = sum(a.elapsed_time(b)
                                      for a, b in spans) / 1e3
-    return Rs, ts, ok
+    return (Rs, ts, ok) + tuple(np.array(x) for x in extra)
 
 
 def pose_errors(dataset: CropDatasetHost, Rs, ts, ok,

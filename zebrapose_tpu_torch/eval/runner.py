@@ -1,14 +1,17 @@
 """Test-run orchestration: the reference test.py main.
 
 Port of `zebrapose_tpu/eval/runner.py` (`load_model_variables`,
+`extract_visible_contour`, `refine_poses`, `dataset_image_hw`,
 `ObjectEval`, `prepare_object_eval`, `run_test`). Assembles dataset +
 detections + LUT + model + eval program from a ZebraConfig and runs the
-evaluation on the device (CUDA unless "cpu" is asked for).
+evaluation on the device (CUDA unless "cpu" is asked for), with the
+optional contour refinement pass on the host (`cfg.refine`: the native
+border follower and Gauss-Newton refiner, `native/`).
 
-Not ported yet (ROADMAP.md, queue A), and refused with
-NotImplementedError: orbax checkpoint directories, the contour
-refinement pass (`cfg.refine`, which needs the native `edge_refine`),
-`debug` dumps (`utils/visualize.py`) and int8 serving.
+Refused with NotImplementedError, each queued in ROADMAP.md (queue A):
+orbax checkpoint directories (A7: convert them with the JAX package's
+`export-ckpt`), `debug` dumps (A7, `utils/visualize.py`) and int8
+serving (A6).
 """
 
 from __future__ import annotations
@@ -16,30 +19,42 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from zebrapose_tpu_torch import native
 from zebrapose_tpu_torch.codec.lut import load_correspondence_lut
 from zebrapose_tpu_torch.config import ZebraConfig
-from zebrapose_tpu_torch.data import bop_io
+from zebrapose_tpu_torch.data import bop_io, png
 from zebrapose_tpu_torch.data import detections as det_mod
+from zebrapose_tpu_torch.data.bop_writer import parse_sample_ids, write_csv
 from zebrapose_tpu_torch.data.dataset_info import is_symmetric, lookup_obj_id
 from zebrapose_tpu_torch.data.pipeline import CropDatasetHost
-from zebrapose_tpu_torch.eval.evaluate import evaluate_object, make_eval_step
+from zebrapose_tpu_torch.eval.evaluate import (
+    evaluate_object,
+    make_eval_step,
+    pose_errors,
+    run_inference,
+    summarize,
+)
 from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
 from zebrapose_tpu_torch.ops.pnp import PnPConfig
+from zebrapose_tpu_torch.ops.roi import map_pixels_to_original
 from zebrapose_tpu_torch.utils.device import resolve_device
 
 _UNPORTED = "is not ported yet (see ROADMAP.md, queue A)"
 
 
-def load_model_variables(ckpt_file: str, variant: str = "v2"
+def load_model_variables(ckpt_file: str, variant: str = "v2",
+                         resnet_layers: int = 34,
+                         nonbinary: bool = False
                          ) -> Dict[str, torch.Tensor]:
     """A checkpoint's weights as a state dict of the port's ZebraPoseNet
     (whose names are the reference checkpoints' keys): a compact `.npz`
-    (`utils/compact_ckpt.py`, converted by `models/convert.py`) or a
+    (`utils/compact_ckpt.py`, converted by `models/convert.py` for the
+    family `variant` / `resnet_layers` / `nonbinary`) or a
     reference-format `.pth` / `.pt` (`models/convert.py::
     reference_state_dict`: DDP prefixes stripped, absent skip-tap aliases
     filled)."""
@@ -47,14 +62,17 @@ def load_model_variables(ckpt_file: str, variant: str = "v2"
         from zebrapose_tpu_torch.models.convert import variables_to_state_dict
         from zebrapose_tpu_torch.utils.compact_ckpt import load_compact
         variables, _ = load_compact(ckpt_file)
-        return variables_to_state_dict(variables, variant)
+        return variables_to_state_dict(variables, variant,
+                                       nonbinary=nonbinary,
+                                       resnet_layers=resnet_layers)
     if ckpt_file.endswith((".pth", ".pt")):
         from zebrapose_tpu_torch.models.convert import reference_state_dict
         ckpt = torch.load(ckpt_file, map_location="cpu", weights_only=True)
         return reference_state_dict(ckpt.get("model_state_dict", ckpt))
     raise NotImplementedError(
         f"checkpoint {ckpt_file!r}: orbax checkpoint directories "
-        + _UNPORTED + "; pass a .npz or a reference .pth")
+        + _UNPORTED + " (A7); convert one with `python -m zebrapose_tpu "
+        "export-ckpt` on a JAX host and pass the .pth, or pass a .npz")
 
 
 def load_model(cfg: ZebraConfig, ckpt_file: str, variant: str = "v2",
@@ -68,16 +86,19 @@ def load_model(cfg: ZebraConfig, ckpt_file: str, variant: str = "v2",
         resnet_layers=cfg.resnet_layer,
         concat=cfg.concat_encoder_decoder,
         output_kernel_size=cfg.output_kernel_size)
-    model.load_state_dict(load_model_variables(ckpt_file, variant),
-                          strict=True)
+    model.load_state_dict(load_model_variables(
+        ckpt_file, variant, resnet_layers=cfg.resnet_layer,
+        nonbinary=cfg.divide_number_each_itration != 2), strict=True)
     return model.eval().to(dev).to(memory_format=torch.channels_last)
 
 
 def build_eval_step(cfg: ZebraConfig, model: ZebraPoseNet, lut,
                     pnp_cfg: PnPConfig, ignore_bit: int = 0,
-                    mask_rcnn: bool = False, device=None):
+                    mask_rcnn: bool = False, return_masks: bool = False,
+                    device=None):
     """run_test's batch program for `model` (make_eval_step with the
-    config's crop sizes, code and resize method)."""
+    config's crop sizes, code and resize method); `return_masks` adds the
+    (visible, entire) masks the refinement pass reads."""
     return make_eval_step(
         lambda b: model(b["image"]), lut,
         crop_img=cfg.BoundingBox_CropSize_image,
@@ -85,19 +106,104 @@ def build_eval_step(cfg: ZebraConfig, model: ZebraPoseNet, lut,
         base=cfg.divide_number_each_itration,
         n_bits=cfg.number_of_itration, resize_method=cfg.resize_method,
         loss_type=cfg.BinaryCode_Loss_Type, pnp_cfg=pnp_cfg,
-        ignore_bits=ignore_bit, mask_from_dataset=mask_rcnn,
-        preprocess_gt=False, device=device)
+        ignore_bits=ignore_bit, return_masks=return_masks,
+        mask_from_dataset=mask_rcnn, preprocess_gt=False, device=device)
+
+
+def extract_visible_contour(entire_mask: np.ndarray,
+                            visible_mask: np.ndarray) -> np.ndarray:
+    """Contour pixels of the entire mask whose 3x3 neighborhood holds
+    visible-mask foreground (test.py:300-307), from the outer borders of
+    the entire mask (`native.find_external_contours`, equal to
+    cv2.findContours(RETR_EXTERNAL, CHAIN_APPROX_NONE)) with fewer than
+    20 points dropped (edge_refine.cpp:83-90). Returns [N, 2] (x, y)
+    int32."""
+    vis = np.asarray(visible_mask) > 0.5
+    h, w = vis.shape
+    # a pixel's 3x3 neighborhood (clipped at the edges) holds foreground
+    pad = np.pad(vis, 1)
+    near = np.zeros_like(vis)
+    for dy in range(3):
+        for dx in range(3):
+            near |= pad[dy:dy + h, dx:dx + w]
+    pts = [c for c in native.find_external_contours(
+        np.asarray(entire_mask) > 0.5) if len(c) >= 20]
+    if not pts:
+        return np.zeros((0, 2), np.int32)
+    pts = np.concatenate(pts)
+    return np.ascontiguousarray(pts[near[pts[:, 1], pts[:, 0]]], np.int32)
+
+
+def refine_poses(dataset: CropDatasetHost, Rs, ts, ok, vis_masks,
+                 ent_masks, mesh_pts, mesh_faces,
+                 image_hw: Tuple[int, int], crop_gt: int,
+                 iterations: int = 10,
+                 debug_dir: Optional[str] = None) -> int:
+    """In-place contour refinement of the successful poses (the
+    reference's refine path): the crop-space visible contour is mapped to
+    full-image pixels through the final bbox and the native Gauss-Newton
+    refiner runs from the pose; a sample whose contour keeps fewer than
+    20 pixels, or whose refiner stops (RuntimeError), keeps its pose.
+    Returns how many poses were refined.
+
+    The final bbox and K come from the dataset's parameters at
+    `image_hw`, without reading the frame again (the JAX package reads
+    it, `get_raw`, for the same values). debug_dir: a subdirectory of
+    per-iteration images a sample (`native.edge_refine`)."""
+    h_img, w_img = image_hw
+    refined = 0
+    for i in range(len(dataset)):
+        if not ok[i]:
+            continue
+        contour = extract_visible_contour(ent_masks[i], vis_masks[i])
+        if len(contour) < 20:
+            continue
+        params = dataset.get_params(i, (h_img, w_img))
+        orig = map_pixels_to_original(
+            torch.from_numpy(contour),
+            torch.from_numpy(np.asarray(params["final_bbox"])),
+            crop_gt).numpy()
+        keep = (orig[:, 0] >= 0) & (orig[:, 0] < w_img) & \
+               (orig[:, 1] >= 0) & (orig[:, 1] < h_img)
+        orig = orig[keep]
+        if len(orig) < 20:
+            continue
+        try:
+            R2, t2 = native.edge_refine(
+                mesh_pts, mesh_faces, params["K"].astype(np.float64),
+                w_img, h_img, orig, Rs[i].astype(np.float64),
+                ts[i].astype(np.float64), iterations=iterations,
+                debug_dir=(os.path.join(debug_dir, f"{i:06d}")
+                           if debug_dir else None))
+        except RuntimeError:
+            continue
+        Rs[i] = R2.astype(np.float32)
+        ts[i] = t2.astype(np.float32)
+        refined += 1
+    return refined
+
+
+def dataset_image_hw(samples, dataset: CropDatasetHost) -> Tuple[int, int]:
+    """(h, w) of the split's full images, for the refiner's clip bounds:
+    the global camera file's im_size, else the size of the first image
+    as read (tless primesense is 720x540; a 640x480 guess would drop
+    right / bottom contour pixels)."""
+    im_size = (samples.cam_param_global or {}).get("im_size")
+    if im_size is None:
+        img0 = png.imread(dataset.rgb_files[0])
+        return img0.shape[0], img0.shape[1]
+    return int(im_size[1]), int(im_size[0])
 
 
 class ObjectEval:
     """Everything run_test needs per object."""
 
     def __init__(self, obj_id, dataset, scores, lut, mesh, vertices,
-                 diameter, symmetric):
+                 diameter, symmetric, samples):
         self.obj_id, self.dataset, self.scores = obj_id, dataset, scores
         self.lut, self.mesh = lut, mesh
         self.vertices, self.diameter = vertices, diameter
-        self.symmetric = symmetric
+        self.symmetric, self.samples = symmetric, samples
 
 
 def prepare_object_eval(cfg: ZebraConfig, obj_name: str,
@@ -159,7 +265,7 @@ def prepare_object_eval(cfg: ZebraConfig, obj_name: str,
         obj_id, dataset, scores, lut, mesh,
         mesh["pts"].astype(np.float32),
         float(samples.model_info[str(obj_id)]["diameter"]),
-        is_symmetric(cfg.dataset_name, obj_name))
+        is_symmetric(cfg.dataset_name, obj_name), samples)
 
 
 def run_test(cfg: ZebraConfig, obj_name: str, ckpt_file: str,
@@ -172,22 +278,24 @@ def run_test(cfg: ZebraConfig, obj_name: str, ckpt_file: str,
              roi_slice: bool = False,
              device=None) -> Dict[str, float]:
     """Single-instance evaluation of one object (test.py main): metrics,
-    plus the BOP CSV, add_err.txt and ADD_result.txt in `output_dir` and
-    the metrics appended to its log.txt.
+    plus the BOP CSV (and without refinement add_err.txt and
+    ADD_result.txt) in `output_dir` and the metrics appended to its
+    log.txt.
 
-    mask_rcnn: the detector's RLE segmentation replaces the network's
-    mask head (reference test_for_mask_rcnn.py). roi_slice: the host
-    ships only each frame's clamped square-bbox bytes (bit-identical
-    crops)."""
+    cfg.refine: the contour refinement pass (test.py:276-313) runs on
+    the host over the poses, the visible masks and the entire masks
+    (`refine_poses`), then ADD / ADD-S and the CSV as the JAX package's
+    refine branch writes them. mask_rcnn: the detector's RLE
+    segmentation replaces the network's mask head (reference
+    test_for_mask_rcnn.py), and refinement reads the dataset's entire
+    mask. roi_slice: the host ships only each frame's clamped
+    square-bbox bytes (bit-identical crops)."""
     if int8:
-        raise NotImplementedError("int8 inference " + _UNPORTED)
-    if cfg.refine:
-        raise NotImplementedError(
-            "cfg.refine (contour refinement, native edge_refine) "
-            + _UNPORTED)
+        raise NotImplementedError("int8 inference " + _UNPORTED + " (A6)")
     if debug:
         raise NotImplementedError(
-            "debug dumps (utils/visualize.py) " + _UNPORTED)
+            "debug dumps (utils/visualize.py, and the refiner's debug "
+            "frames under --debug) " + _UNPORTED + " (A7)")
     dev = resolve_device(device)
     t0 = time.perf_counter()
     oe = prepare_object_eval(cfg, obj_name, max_samples=max_samples,
@@ -196,16 +304,62 @@ def run_test(cfg: ZebraConfig, obj_name: str, ckpt_file: str,
     model = load_model(cfg, ckpt_file, variant, device=dev)
     step = build_eval_step(cfg, model, oe.lut, pnp_cfg or PnPConfig(),
                            ignore_bit=ignore_bit, mask_rcnn=mask_rcnn,
-                           device=dev)
+                           return_masks=cfg.refine, device=dev)
     t2 = time.perf_counter()
-    res = evaluate_object(
-        oe.dataset, step, oe.vertices, oe.diameter, oe.symmetric,
-        oe.obj_id, cfg.dataset_name, obj_name, output_dir=output_dir,
-        scores=oe.scores, batch_size=batch_size, device=dev)
-    # where this run's time went, in seconds (evaluate_object's stages)
+    if cfg.refine:
+        metrics, timing = _refined_eval(cfg, oe, step, obj_name, output_dir,
+                                        batch_size, dev)
+    else:
+        res = evaluate_object(
+            oe.dataset, step, oe.vertices, oe.diameter, oe.symmetric,
+            oe.obj_id, cfg.dataset_name, obj_name, output_dir=output_dir,
+            scores=oe.scores, batch_size=batch_size, device=dev)
+        metrics, timing = res.metrics, res.timing
+    # where this run's time went, in seconds (evaluate_object's stages,
+    # or those of the refined evaluation)
     print("timing " + json.dumps(dict(
-        prepare_s=t1 - t0, load_model_s=t2 - t1, **res.timing)))
+        prepare_s=t1 - t0, load_model_s=t2 - t1, **timing)))
     with open(os.path.join(output_dir, "log.txt"), "a") as f:
-        for k, v in res.metrics.items():
+        for k, v in metrics.items():
             f.write(f"{k} {v}\n")
-    return res.metrics
+    return metrics
+
+
+def _refined_eval(cfg: ZebraConfig, oe: ObjectEval, step, obj_name: str,
+                  output_dir: str, batch_size: int, dev):
+    """run_test's refine branch (JAX runner.py:344-391): inference with
+    the masks, `refine_poses` over the successful samples, failed
+    samples set to identity and zero, ADD / ADD-S and the BOP CSV.
+    Returns (metrics, seconds by stage with `refined`, the count of
+    refined poses)."""
+    timing: Dict[str, float] = {}
+    Rs, ts, ok, vis_masks, ent_masks = run_inference(
+        oe.dataset, step, batch_size, device=dev, timing=timing,
+        collect_masks=True)
+    t0 = time.perf_counter()
+    refined = 0
+    if "faces" in oe.mesh and len(oe.dataset) > 0:
+        refined = refine_poses(
+            oe.dataset, Rs, ts, ok, vis_masks, ent_masks, oe.vertices,
+            oe.mesh["faces"].astype(np.int32),
+            dataset_image_hw(oe.samples, oe.dataset),
+            cfg.BoundingBox_CropSize_GT)
+    timing.update(refine_s=time.perf_counter() - t0, refined=refined)
+    Rs[~ok] = np.eye(3)
+    ts[~ok] = 0
+    t0 = time.perf_counter()
+    errors = pose_errors(oe.dataset, Rs, ts, ok, oe.vertices, oe.symmetric,
+                         device=dev)
+    metrics = summarize(errors, oe.diameter,
+                        "ADD-S" if oe.symmetric else "ADD")
+    timing["pose_errors_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    os.makedirs(output_dir, exist_ok=True)
+    ids = parse_sample_ids(oe.dataset.rgb_files)
+    write_csv(os.path.join(output_dir, "pose_result_bop"),
+              f"{cfg.dataset_name}_{obj_name}", oe.obj_id,
+              [s for s, _ in ids], [i for _, i in ids], list(Rs),
+              [t.reshape(3, 1) for t in ts],
+              oe.scores if oe.scores is not None else [1.0] * len(ts))
+    timing["write_s"] = time.perf_counter() - t0
+    return metrics, timing

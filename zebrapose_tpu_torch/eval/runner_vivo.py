@@ -45,7 +45,7 @@ def run_vivo(cfg: ZebraConfig, obj_name: str, ckpt_file: str,
     "solve_rate"}. Prints a `timing {...}` line (seconds by stage, as
     `run_test` does)."""
     if int8:
-        raise NotImplementedError("int8 inference " + _UNPORTED)
+        raise NotImplementedError("int8 inference " + _UNPORTED + " (A6)")
     dev = resolve_device(device)
     t0 = time.perf_counter()
     obj_id = lookup_obj_id(cfg.dataset_name, obj_name)

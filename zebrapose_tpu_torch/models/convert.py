@@ -5,8 +5,11 @@ The port's copy of the mapping in `zebrapose_tpu/models/convert_torch.py`
 (`_walk_reference`, the export mapping and `_CONCAT_ALIASES`), without
 flax. The port's module names are the reference checkpoints' keys, so
 the result is also a reference-format state dict.
-`load_torchvision_resnet34` is the counterpart of
-`convert_torchvision_resnet34` + `merge_pretrained` (:306-344).
+Every family of the model: v1 / v2 / v3, ResNet34 / ResNet50, base 2
+and the non-binary heads. `load_torchvision_resnet34` is the
+counterpart of `convert_torchvision_resnet34` + `merge_pretrained`
+(:306-344); like them it fails with a shape error on a ResNet50 model,
+and there is no ResNet50 ImageNet loader in either package.
 
 Conventions (inverse of the JAX importer):
   * conv kernel  [kh, kw, in, out] -> weight [out, in, kh, kw]
@@ -23,10 +26,16 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-_BLOCK_STAGES = (("layer1", "resnet.4", 3), ("layer2", "resnet.5", 4),
-                 ("layer4", "layer4", 6), ("layer5", "layer5", 3))
+_BLOCK_STAGES = {  # resnet_layers -> (ours, reference prefix, n, bottleneck)
+    34: (("layer1", "resnet.4", 3, False), ("layer2", "resnet.5", 4, False),
+         ("layer4", "layer4", 6, False), ("layer5", "layer5", 3, False)),
+    50: (("layer1", "resnet.4", 3, True), ("layer2", "resnet.5", 4, True),
+         ("layer4", "layer4", 6, False), ("layer5", "layer5", 3, False)),
+}
 _ASPP_CONVS = ("conv_1x1_1", "conv_3x3_1", "conv_3x3_2", "conv_3x3_3",
                "conv_1x1_2", "conv_1x1_3")
+_ASPP_V3_CONVS = ("conv_1x1_1", "conv_3x3_1", "conv_3x3_2", "conv_1x1_2",
+                  "conv_1x1_3")
 # The reference registers stem/layer1/layer2 twice (skip-tap
 # Sequentials); a strict load wants both key families.
 _CONCAT_ALIASES = (
@@ -69,11 +78,15 @@ class _StateDictWriter:
         self.sd[theirs + ".running_var"] = self.stats[ours + ("var",)]
         self.sd[theirs + ".num_batches_tracked"] = np.asarray(0, np.int64)
 
-    def basic_block(self, ours: Tuple[str, ...], theirs: str):
+    def basic_block(self, ours: Tuple[str, ...], theirs: str,
+                    bottleneck: bool = False):
         self.conv(ours + ("conv1", "conv"), theirs + ".conv1")
         self.bn(ours + ("bn1", "bn"), theirs + ".bn1")
         self.conv(ours + ("conv2", "conv"), theirs + ".conv2")
         self.bn(ours + ("bn2", "bn"), theirs + ".bn2")
+        if bottleneck:
+            self.conv(ours + ("conv3", "conv"), theirs + ".conv3")
+            self.bn(ours + ("bn3", "bn"), theirs + ".bn3")
         if ours + ("downsample_conv", "conv", "kernel") in self.params:
             self.conv(ours + ("downsample_conv", "conv"),
                       theirs + ".downsample.0")
@@ -87,35 +100,52 @@ class _StateDictWriter:
         self.conv(ours + ("conv2", "conv"), theirs + ".6")
         self.bn(ours + ("bn2", "bn"), theirs + ".7")
 
+    def aspp_trunk(self, ours_root: str, theirs_root: str, convs):
+        for name in convs:
+            self.conv((ours_root, name, "conv", "conv"),
+                      f"{theirs_root}.{name}", bias=True)
+            self.bn((ours_root, name, "bn", "bn"),
+                    f"{theirs_root}.bn_{name}")
+        self.upsample((ours_root, "upsample_1"), f"{theirs_root}.upsample_1")
+        self.upsample((ours_root, "upsample_2"), f"{theirs_root}.upsample_2")
 
-def _walk_reference(eb: _StateDictWriter) -> None:
-    """The flax <-> reference leaf mapping for v1/v2 on ResNet34."""
+
+def _walk_reference(eb: _StateDictWriter, variant: str, nonbinary: bool,
+                    resnet_layers: int) -> None:
+    """The flax <-> reference leaf mapping of one model family
+    (`convert_torch.py::_walk_reference`)."""
     root = "net.resnet"
     eb.conv(("resnet", "conv1", "conv"), f"{root}.resnet.0")
     eb.bn(("resnet", "bn1", "bn"), f"{root}.resnet.1")
-    for ours, theirs, n in _BLOCK_STAGES:
+    for ours, theirs, n, bneck in _BLOCK_STAGES[resnet_layers]:
         for i in range(n):
-            eb.basic_block(("resnet", f"{ours}_{i}"), f"{root}.{theirs}.{i}")
-    for name in _ASPP_CONVS:
-        eb.conv(("aspp", name, "conv", "conv"), f"net.aspp.{name}",
-                bias=True)
-        eb.bn(("aspp", name, "bn", "bn"), f"net.aspp.bn_{name}")
-    eb.upsample(("aspp", "upsample_1"), "net.aspp.upsample_1")
-    eb.upsample(("aspp", "upsample_2"), "net.aspp.upsample_2")
+            eb.basic_block(("resnet", f"{ours}_{i}"), f"{root}.{theirs}.{i}",
+                           bottleneck=bneck)
+    eb.aspp_trunk("aspp", "net.aspp", _ASPP_CONVS)
+    if nonbinary:
+        for head in ("conv_1x1_4_mask", "conv_1x1_4_code"):
+            eb.conv(("aspp", head, "conv"), f"net.aspp.{head}", bias=True)
+        return
     eb.conv(("aspp", "conv_1x1_4", "conv"), "net.aspp.conv_1x1_4", bias=True)
+    if variant == "v3":
+        eb.aspp_trunk("aspp_v3", "net.aspp_v3", _ASPP_V3_CONVS)
+        eb.conv(("aspp_v3", "conv_1x1_4", "conv"), "net.aspp_v3.conv_1x1_4",
+                bias=True)
 
 
-def variables_to_state_dict(variables: Dict[str, Any], variant: str = "v2"
+def variables_to_state_dict(variables: Dict[str, Any], variant: str = "v2",
+                            nonbinary: bool = False, resnet_layers: int = 34
                             ) -> Dict[str, torch.Tensor]:
-    """JAX {"params", "batch_stats"} tree (numpy leaves) -> a state dict
-    that `ZebraPoseNet(variant=variant).load_state_dict(sd)` accepts
-    strictly. v1 and v2 share the key set (only the head width
-    differs)."""
-    if variant not in ("v1", "v2"):
-        raise NotImplementedError(f"variant {variant!r} is not ported yet "
-                                  "(see ROADMAP.md, queue A)")
+    """JAX {"params", "batch_stats"} tree (numpy leaves) of the family
+    (`variant`, `nonbinary` = base > 2, `resnet_layers`) -> a state dict
+    that the same `ZebraPoseNet` accepts strictly (v1 and v2 share the
+    key set; only the head width differs)."""
+    if variant not in ("v1", "v2", "v3"):
+        raise ValueError(f"variant {variant!r}: v1, v2 or v3")
+    if resnet_layers not in _BLOCK_STAGES:
+        raise NotImplementedError(f"resnet_layers={resnet_layers}")
     eb = _StateDictWriter(variables)
-    _walk_reference(eb)
+    _walk_reference(eb, variant, nonbinary, resnet_layers)
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in _fill_aliases(eb.sd).items()}
 

@@ -72,11 +72,17 @@ def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 3, 2, 1)
 
 
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]
+                    ) -> torch.Tensor:
+    """F.interpolate(mode='bilinear', align_corners=False) on NCHW; the
+    identity at the same size."""
+    if tuple(out_hw) == tuple(x.shape[2:]):
+        return x
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                         align_corners=False)
+
+
 def interpolate_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]
                          ) -> torch.Tensor:
-    """F.interpolate(mode='bilinear', align_corners=False) on NHWC."""
-    if tuple(out_hw) == tuple(x.shape[1:3]):
-        return x
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw),
-                      mode="bilinear", align_corners=False)
-    return y.permute(0, 2, 3, 1)
+    """`resize_bilinear` on NHWC (the JAX package's layout)."""
+    return resize_bilinear(x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
