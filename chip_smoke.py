@@ -1,5 +1,5 @@
 """Drive the PyTorch port's inference, training, BOP, data-preparation,
-refinement and model-family paths on one card.
+refinement, model-family and fleet paths on one card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline OLD.cu --baseline-intrinsics fxfycxcy
@@ -30,7 +30,7 @@ check exits non-zero. Phases:
                  a direct make_eval_step call on the first batch, ADD
                  recall against the JAX package's on the same tree; the
                  command's time by stage as run_test logs it; recall
-                 over RANSAC seeds 0-3 with cuDNN TF32 on and off
+                 over RANSAC seeds 0-1 with cuDNN TF32 on and off
   8. train       a training split written into phase 7's tree (160
                  sphere frames, GT labels from the committed LUT); one
                  b8 train step on the card against the CPU (f32, TF32
@@ -82,11 +82,31 @@ check exits non-zero. Phases:
                  validation (the kernel's launches counted), its peak
                  memory, ms a step in turns with v2 (v2, family, family,
                  v2), `test` on the checkpoint (v3 refined)
+ 12. fleet       K = 2 objects' models in one program: the solver
+                 options (DLT, eigh / SVD, 8-point sets) in
+                 decode_to_pose_batch on a b32 relief scene, card vs CPU
+                 with the same draws (no kernel launch); a second LM-O
+                 object (can: the sphere, mesh and LUT of the ape, GT on
+                 the first 88 of 120 frames) beside the ape in a tree
+                 linked to phase 7's: `test-fleet` plain and escalated
+                 (recall against the JAX package's, K / 2K launches a
+                 lockstep batch, verdicts against the single `test`s,
+                 frames/s in turns single, fleet, fleet, single), again
+                 with phase 8's checkpoint as the can's weights against
+                 its single `test`; `vivo-fleet` over phase 9's
+                 detections plus the can's, `score-bop` on the merged CSV
+                 (AR against the JAX package's); `train-fleet
+                 --from_scratch --bf16` for 60 steps with one pose
+                 validation (each loss falls, each checkpoint loads into
+                 `test`'s model, the kernel in validation), ms a fleet
+                 step from memory in turns with a v2 step (v2, fleet,
+                 fleet, v2), kernels a step, busy share, peak memory
 
-`--write-tree DIR` writes phase 7's tree with phase 8's training split
-and phase 9's inputs (and their configs) on the CPU and stops: the JAX
-package's `test`, `vivo` and `score-bop` commands run on it for the
-reference recall and AR.
+`--write-tree DIR` writes phase 7's tree with phase 8's training split,
+phase 9's inputs and phase 12's tree `DIR/fleet` (and their configs) on
+the CPU and stops: the JAX package's `test`, `vivo`, `score-bop`,
+`test-fleet` and `vivo-fleet` commands run on it for the reference
+recall and AR.
 
 `--baseline OLD.cu` also builds another version of
 `csrc/epnp_minimal.cu` with the same C interface and times it against
@@ -183,6 +203,31 @@ FAMILIES = {
 }
 FAMILY_STEPS, FAMILY_TEST_FRAMES = 40, 32
 FAMILY_TIMED_STEPS, FAMILY_TIMED_WARM = 15, 5
+
+# the fleet phase: the second LM-O object (same sphere, mesh and LUT as
+# the ape) with GT on the first FLEET_FRAMES test frames and the first
+# FLEET_TRAIN_FRAMES training frames, so lockstep batches pad; the
+# fleet's training steps (one pose validation at the last, b16) and the
+# timed steps a turn. JAX_CPU_FLEET: the JAX package's `python -m
+# zebrapose_tpu test-fleet --cfg DIR/fleet/lmo_fleet.txt --obj_names ape
+# can --ckpt_files trained/rehearsal3_best.npz trained/rehearsal3_best.npz
+# --batch_size 32` (and `--escalate_h 256`): ADD recall@0.1d a member;
+# `vivo-fleet --cfg DIR/fleet/lmo_fleet_vivo.txt` with the same members
+# at b32, then `score-bop --csv <its lmo_vivo_fleet.csv> --bop_path
+# DIR/fleet --dataset lmo`; JAX_PLATFORMS=cpu, JAX 0.9.0 on an x86
+# host's CPU, over `--write-tree DIR`.
+FLEET_OBJ, FLEET_OBJ_ID = "can", 5
+FLEET_FRAMES, FLEET_TRAIN_FRAMES = 88, 120
+FLEET_STEPS, FLEET_TIMED_STEPS, FLEET_TIMED_WARM = 60, 15, 5
+FLEET_MIXED_FRAMES = 32
+JAX_CPU_FLEET = {
+    "test": {"plain": {"ape": 0.6916666666666667, "can": 0.7613636363636364},
+             "escalated": {"ape": 0.7583333333333333,
+                           "can": 0.7386363636363636}},
+    "vivo": {"AR": 0.8885096153846154, "AR_vsd": 0.848701923076923,
+             "AR_mssd": 0.8408653846153846, "AR_mspd": 0.9759615384615385,
+             "instances": {"ape": 190, "can": 110},
+             "solved": {"ape": 160, "can": 88}}}
 
 # H100 peaks (NVIDIA data sheet, dense, at the 700 W limit):
 # (FP32 non-tensor FLOP/s, HBM bytes/s)
@@ -401,16 +446,17 @@ def case_errors(samp3d, samp2d, Ks, gn_iters):
     return torch.where(torch.isnan(err), torch.inf, err), Rs, ts
 
 
-def relief_scene(rng, B=8, G=64, bits=16):
+def relief_scene(rng, B=8, G=64, bits=16, side=96, amp=60.0):
     """B instances of a 64² crop whose codes index LUT points that are
-    exact back-projections of a depth-relief surface under a random
-    pose (final bbox (100, 70, 96, 96))."""
+    exact back-projections of a depth-relief surface (±amp mm at 600 mm)
+    under a random pose (final bbox (100, 70, side, side))."""
     lut_pts = rng.uniform(-40, 40, (2 ** bits, 3)).astype(np.float32)
     lut_valid = np.ones((2 ** bits,), bool)
     Kinv = np.linalg.inv(K_LMO.astype(np.float64))
     masks = np.zeros((B, G, G), np.float32)
     codes = np.zeros((B, G, G, bits), np.float32)
-    bboxes = np.tile(np.array([[100, 70, 96, 96]], np.int32), (B, 1))
+    bboxes = np.tile(np.array([[100, 70, side, side]], np.int32), (B, 1))
+    scale = side / G
     R_gt = np.zeros((B, 3, 3))
     shifts = np.arange(bits - 1, -1, -1)
     nid = 1
@@ -421,8 +467,8 @@ def relief_scene(rng, B=8, G=64, bits=16):
         R_gt[b] = R0
         for y in range(16, 48):
             for x in range(14, 50):
-                ox, oy = int(1.5 * x + 100), int(1.5 * y + 70)
-                d = 600.0 + 60 * np.sin(x * 0.35) * np.cos(y * 0.3)
+                ox, oy = int(scale * x + 100), int(scale * y + 70)
+                d = 600.0 + amp * np.sin(x * 0.35) * np.cos(y * 0.3)
                 lut_pts[nid] = R0.T @ (Kinv @ np.array([ox * d, oy * d, d])
                                        - t0)
                 masks[b, y, x] = 1.0
@@ -730,6 +776,131 @@ def write_train_split(root, n_frames=TRAIN_FRAMES, seed=TRAIN_SEED):
     return cfg_path
 
 
+def _link_split(src, dst, n_second, link_rgb=True):
+    """One scene of a split under `dst` whose files link to `src`'s
+    (`rgb` too when `link_rgb`), with the fleet's second object as a
+    second GT instance (the first one's pose, masks and labels) on the
+    first `n_second` frames."""
+    os.makedirs(dst, exist_ok=True)
+    for name in ("rgb", "depth", "scene_camera.json"):
+        if os.path.exists(os.path.join(src, name)) and (
+                link_rgb or name != "rgb"):
+            os.symlink(os.path.join(src, name), os.path.join(dst, name))
+    for sub in ("mask", "mask_visib"):
+        os.makedirs(os.path.join(dst, sub))
+    with open(os.path.join(src, "scene_gt.json")) as f:
+        gt = json.load(f)
+    with open(os.path.join(src, "scene_gt_info.json")) as f:
+        gti = json.load(f)
+    for im in sorted(gt, key=int):
+        n = 2 if int(im) < n_second else 1
+        for sub in ("mask", "mask_visib"):
+            for gi in range(n):
+                os.symlink(os.path.join(src, sub, f"{int(im):06d}_000000.png"),
+                           os.path.join(dst, sub,
+                                        f"{int(im):06d}_{gi:06d}.png"))
+        if n == 2:
+            gt[im].append(dict(gt[im][0], obj_id=FLEET_OBJ_ID))
+            gti[im].append(dict(gti[im][0]))
+    for name, obj in (("scene_gt", gt), ("scene_gt_info", gti)):
+        with open(os.path.join(dst, f"{name}.json"), "w") as f:
+            json.dump(obj, f)
+
+
+def write_fleet_tree(src_root, root):
+    """Phase 12's BOP tree under `root`, after phase 7 and 8 wrote theirs
+    under `src_root`: its files linked (phase 7's frames written again
+    with Sub-filter rows), with the fleet's second LM-O object
+    (FLEET_OBJ, id 5) on the same sphere mesh and committed LUT,
+    GT on the first FLEET_FRAMES test frames and the first
+    FLEET_TRAIN_FRAMES training frames (labels linked too); the configs
+    `<root>/lmo_fleet.txt`, `lmo_fleet_train.txt` and `lmo_fleet_vivo.txt`
+    (phase 9's detections plus near boxes of the second object at 0.85,
+    every 4th frame a background box at 0.3) and the BOP19 targets of
+    both objects. Returns the three config paths."""
+    src, ds = os.path.join(src_root, "lmo"), os.path.join(root, "lmo")
+    os.makedirs(os.path.join(ds, "models_GT_color"))
+    for d in ("models", "models_eval"):
+        os.makedirs(os.path.join(ds, d))
+        for oid in (1, FLEET_OBJ_ID):
+            os.symlink(os.path.join(src, d, "obj_000001.ply"),
+                       os.path.join(ds, d, f"obj_{oid:06d}.ply"))
+        with open(os.path.join(ds, d, "models_info.json"), "w") as f:
+            json.dump({str(o): {"diameter": 2 * SPHERE_RADIUS}
+                       for o in (1, FLEET_OBJ_ID)}, f)
+    for oid in (1, FLEET_OBJ_ID):
+        os.symlink(os.path.join(src, "models_GT_color",
+                                "Class_CorresPoint000001.txt"),
+                   os.path.join(ds, "models_GT_color",
+                                f"Class_CorresPoint{oid:06d}.txt"))
+    os.symlink(os.path.join(src, "camera.json"),
+               os.path.join(ds, "camera.json"))
+    _link_split(os.path.join(src, "test", "000001"),
+                os.path.join(ds, "test", "000001"), FLEET_FRAMES,
+                link_rgb=False)
+    # phase 7's frames again (the same seed), their rows written with the
+    # Sub filter: the cycle of filters 0-4 that phase 7 reads on purpose
+    # makes the host's PNG decode the time of every run over them
+    from concurrent.futures import ThreadPoolExecutor
+
+    from zebrapose_tpu_torch.data import png
+
+    frames = sphere_frames(TREE_FRAMES, np.random.default_rng(TREE_SEED))[0]
+    rgb = os.path.join(ds, "test", "000001", "rgb")
+    os.makedirs(rgb)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(lambda im: png.imwrite(
+            os.path.join(rgb, f"{im:06d}.png"), frames[im], filters=1),
+            range(TREE_FRAMES)))
+    _link_split(os.path.join(src, "train_real", "000001"),
+                os.path.join(ds, "train_real", "000001"), FLEET_TRAIN_FRAMES)
+    labels = os.path.join(ds, "train_real_GT_v2", "000001")
+    os.makedirs(labels)
+    for im in range(TRAIN_FRAMES):
+        for gi in range(2 if im < FLEET_TRAIN_FRAMES else 1):
+            os.symlink(os.path.join(src, "train_real_GT_v2", "000001",
+                                    f"{im:06d}_000000.png"),
+                       os.path.join(labels, f"{im:06d}_{gi:06d}.png"))
+
+    with open(os.path.join(src, "test", "000001", "scene_gt_info.json")) as f:
+        gti = json.load(f)
+    with open(os.path.join(src_root, "detections_vivo.json")) as f:
+        dets = json.load(f)
+    rng = np.random.default_rng(VIVO_SEED + 1)
+    for im in range(FLEET_FRAMES):
+        x, y, w, h = gti[str(im)][0]["bbox_visib"]
+        near = [int(v) for v in np.array([x, y, w, h])
+                + rng.integers(-3, 4, 4)]
+        dets[f"1/{im}"].append({"obj_id": FLEET_OBJ_ID, "bbox_est": near,
+                                "score": 0.85})
+        if im % 4 == 0:
+            bx = int(rng.integers(380, 640 - w)) if x + w / 2 < 320 \
+                else int(rng.integers(0, 260 - w))
+            dets[f"1/{im}"].append({
+                "obj_id": FLEET_OBJ_ID, "score": 0.3, "bbox_est": [
+                    bx, int(rng.integers(0, 480 - h)), int(w), int(h)]})
+    det_path = os.path.join(root, "detections_fleet.json")
+    with open(det_path, "w") as f:
+        json.dump(dets, f)
+    with open(os.path.join(ds, "test_targets_bop19.json"), "w") as f:
+        json.dump([{"scene_id": 1, "im_id": im, "obj_id": o, "inst_count": 1}
+                   for im in range(TREE_FRAMES) for o in (1, FLEET_OBJ_ID)
+                   if o == 1 or im < FLEET_FRAMES], f)
+    paths = []
+    for name, src_cfg, extra in (
+            ("lmo_fleet.txt", "lmo_ape.txt", ""),
+            ("lmo_fleet_train.txt", "lmo_ape_train.txt", ""),
+            ("lmo_fleet_vivo.txt", "lmo_ape.txt",
+             f"Detection_reaults = {det_path}\n")):
+        with open(os.path.join(src_root, src_cfg)) as f:
+            text = f.read().replace(f"bop_path = {src_root}\n",
+                                    f"bop_path = {root}\n")
+        paths.append(os.path.join(root, name))
+        with open(paths[-1], "w") as f:
+            f.write(text + extra)
+    return paths
+
+
 def png_decode_ms(frame, tmp):
     """ms to read one 480x640 BGR frame with the port's reader, by the
     filter its rows carry (median of 3 reads each)."""
@@ -888,7 +1059,7 @@ def runner_phase(dev, card, tmp, n_frames=TREE_FRAMES):
     log(f"[runner] first batch: run_inference = make_eval_step (R, t, "
         f"success equal; solved {ok.mean():.3f})")
 
-    # recall@0.1d over RANSAC seeds 0-3, with cuDNN's TF32 convolutions
+    # recall@0.1d over RANSAC seeds 0-1, with cuDNN's TF32 convolutions
     # on (PyTorch's default, as in the runs above) and off: the draws'
     # spread against TF32's effect. The frames collated above are served
     # from memory, so no PNG decode runs beside the steps here.
@@ -907,11 +1078,11 @@ def runner_phase(dev, card, tmp, n_frames=TREE_FRAMES):
                 res = [evaluate_object(
                     collated, st, oe.vertices, oe.diameter, oe.symmetric,
                     oe.obj_id, cfg.dataset_name, "ape", batch_size=bsz,
-                    seed=seed, device=dev) for seed in range(4)]
+                    seed=seed, device=dev) for seed in range(2)]
                 sweep[key] = [r.metrics["ADD_recall_0.1d"] for r in res]
                 step_ms[key] = [1e3 * r.timing["step_s"] / -(-n // bsz)
                                 for r in res]
-                log(f"[runner] recall@0.1d over seeds 0-3, {key}: "
+                log(f"[runner] recall@0.1d over seeds 0-1, {key}: "
                     + " ".join(f"{r:.4f}" for r in sweep[key])
                     + f" (mean {np.mean(sweep[key]):.4f}); a b{bsz} step "
                     f"issued in " + " ".join(f"{t:.1f}" for t in step_ms[key])
@@ -1989,6 +2160,472 @@ def families_phase(dev, card, tmp):
     return rec
 
 
+def _run_dir(out):
+    (run_dir,) = os.listdir(out)
+    return os.path.join(out, run_dir)
+
+
+def _csv_poses(path):
+    """{im: (R, t)} of a `test` CSV (a failed frame has R = I, t = 0)."""
+    rows = {}
+    for ln in open(path).read().splitlines()[1:]:
+        f = ln.split(",")
+        rows[int(f[1])] = (np.array(f[4].split(), float).reshape(3, 3),
+                           np.array(f[5].split(), float))
+    return rows
+
+
+def _add_verdicts(rows, root, obj_id, diameter=2 * SPHERE_RADIUS):
+    """{im: ADD < 0.1 d} of `_csv_poses` rows against the tree's GT of
+    `obj_id` (the sphere's vertices): a frame's success and ADD verdict
+    in one (a failed frame's identity pose is far off)."""
+    pts, _ = uv_sphere()
+    with open(os.path.join(root, "lmo", "test", "000001",
+                           "scene_gt.json")) as f:
+        gt = json.load(f)
+    out = {}
+    for im, (R, t) in rows.items():
+        g = [x for x in gt[str(im)] if x["obj_id"] == obj_id][0]
+        Rg = np.array(g["cam_R_m2c"]).reshape(3, 3)
+        tg = np.array(g["cam_t_m2c"])
+        err = np.linalg.norm(pts @ R.T + t - (pts @ Rg.T + tg), axis=1)
+        out[im] = bool(err.mean() < 0.1 * diameter)
+    return out
+
+
+def solver_options(dev, card):
+    """Phase 12, item 1: decode_to_pose_batch with each solver option on
+    [main]'s relief scene at b32, card against CPU with the same injected
+    draws; none launches the kernel."""
+    import torch
+
+    from zebrapose_tpu_torch.ops.pnp import (
+        PnPConfig,
+        RansacDraws,
+        decode_to_pose_batch,
+        subset_pad_len,
+    )
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+
+    out = {}
+    # DLT's 12-dof fit needs a wide, deep view (float32 DLT fails on a
+    # 96-pixel bbox in both stacks); the EPnP options take [main]'s
+    for name, kw, side, amp in (
+            ("dlt", dict(hyp_solver="dlt", sample_size=6), 384, 200.0),
+            ("eigh", dict(fast_linalg=False), 96, 60.0),
+            ("sample8", dict(sample_size=8), 96, 60.0)):
+        rng = np.random.default_rng(21)
+        masks, codes, lut_pts, lut_valid, bboxes, R_gt = relief_scene(
+            rng, B=32, side=side, amp=amp)
+        B, G = masks.shape[:2]
+        cfg = PnPConfig(n_hypotheses=128, max_points=1024, **kw)
+        draws = RansacDraws(
+            prio=torch.from_numpy(rng.random(
+                (B, subset_pad_len(G * G, cfg)), np.float32)),
+            u=torch.from_numpy(rng.random((B, 128, cfg.sample_size),
+                                          np.float32)))
+        args = (masks, codes, lut_pts, lut_valid, bboxes,
+                np.tile(K_LMO[None], (B, 1, 1)))
+        dargs = [torch.from_numpy(np.asarray(a)).to(dev) for a in args]
+        ddraws = RansacDraws(prio=draws.prio.to(dev), u=draws.u.to(dev))
+        minimal_epnp_hypotheses.launches = 0
+        Rk, tk, okk, _ = (x.cpu().numpy() for x in decode_to_pose_batch(
+            *dargs, bbox_size=G, cfg=cfg, draws=ddraws, device=dev))
+        launches = minimal_epnp_hypotheses.launches
+        Rc, tc, okc, _ = (x.numpy() for x in decode_to_pose_batch(
+            *args, bbox_size=G, cfg=cfg, draws=draws, device="cpu"))
+        ms = time_ms(lambda: decode_to_pose_batch(
+            *dargs, bbox_size=G, cfg=cfg, draws=ddraws, device=dev),
+            iters=5, warmup=1)[0]
+        both = okk & okc
+        # |R| elementwise: arccos of a trace near 3 is too coarse here
+        dR = np.abs(Rk[both] - Rc[both]).max((1, 2)) if both.any() \
+            else np.zeros(1)
+        dt = np.linalg.norm(tk[both] - tc[both], axis=-1) \
+            if both.any() else np.zeros(1)
+        gt = rot_deg(Rk[okk], R_gt[okk]) if okk.any() else np.zeros(1)
+        log(f"[fleet] solver option {name} ({kw}), b{B}: solved "
+            f"{int(okk.sum())}/{int(okc.sum())} of {B} (card/CPU, "
+            f"{int((okk == okc).sum())} verdicts agree); card vs CPU where "
+            f"both solved: R max abs err {dR.max():.2e}, t mm max "
+            f"{dt.max():.2e}; vs GT rot deg median {np.median(gt):.2e}; "
+            f"{ms:.2f} ms a b{B} decode (CUDA events, median of 5); "
+            f"{launches} kernel launches; on {card}")
+        check(launches == 0, f"{name}: the hypothesis kernel was launched")
+        check((okk == okc).mean() >= 0.9 and okk.sum() >= B // 2,
+              f"{name}: card and CPU verdicts differ, or few solved")
+        check(np.percentile(dR, 90) < 1e-3 and np.percentile(dt, 90) < 0.5,
+              f"{name}: card and CPU poses differ")
+        out[name] = {"solved": int(okk.sum()), "solved_cpu": int(okc.sum()),
+                     "R_max_abs_err": float(dR.max()),
+                     "t_mm_max": float(dt.max()), "ms": ms,
+                     "launches": launches}
+    return out
+
+
+def _test_cmd(dev, cfg, out, names, ckpts, extra=()):
+    """One `test` (one object) or `test-fleet` run: (wall s, launches,
+    run dir)."""
+    import torch
+
+    from zebrapose_tpu_torch import cli
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+
+    args = (["test", "--obj_name", names[0], "--ckpt_file", ckpts[0]]
+            if len(names) == 1 else
+            ["test-fleet", "--obj_names", *names, "--ckpt_files", *ckpts])
+    minimal_epnp_hypotheses.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(args + ["--cfg", cfg, "--batch_size", "32",
+                          "--output_dir", out, "--device", str(dev)]
+                  + list(extra))
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"{args[0]} {names} returned {rc}")
+    return wall, minimal_epnp_hypotheses.launches, _run_dir(out)
+
+
+def fleet_test(dev, card, tmp, froot, cfg_test, ckpt8):
+    """Phase 12, item 2: `test-fleet` of ape and can, plain and escalated,
+    gated on JAX's recall; the two single `test`s in turns with the fleet
+    (single, fleet, fleet, single) for frames/s; the members with
+    different weights (can: phase 8's checkpoint) against their single
+    `test`s."""
+    n_ape, n_can = TREE_FRAMES, FLEET_FRAMES
+    batches = -(-max(n_ape, n_can) // 32)
+    frames = n_ape + n_can
+    names = ["ape", FLEET_OBJ]
+    rec = {"runs": {}, "turns": {"single_s": [], "fleet_s": []}}
+    singles = {}
+
+    def single_turn(tag):
+        wall = 0.0
+        for name, n in zip(names, (n_ape, n_can)):
+            w, launches, run = _test_cmd(
+                dev, cfg_test, os.path.join(tmp, f"f_single_{name}_{tag}"),
+                [name], [CKPT])
+            check(launches >= -(-n // 32), f"single {name}: launches")
+            singles[name] = run
+            wall += w
+        rec["turns"]["single_s"].append(wall)
+
+    single_turn(0)
+    for name, extra in (("plain", []), ("timed", []),
+                        ("escalated", ["--escalate_h", "256"])):
+        wall, launches, run = _test_cmd(
+            dev, cfg_test, os.path.join(tmp, f"f_fleet_{name}"), names,
+            [CKPT, CKPT], extra)
+        if name != "escalated":
+            rec["turns"]["fleet_s"].append(wall)
+        res = _last_json(open(os.path.join(run, "log.txt")).read())
+        timing = _phase_timing(run)
+        esc = name == "escalated"
+        want = 2 * batches
+        check(want <= launches <= (2 * want if esc else want),
+              f"test-fleet {name}: {launches} kernel launches, not "
+              f"{'K to 2K' if esc else 'K'} ({len(names)}) a batch over "
+              f"{batches} batches")
+        recalls = {n: res["per_object"][n]["ADD_recall_0.1d"] for n in names}
+        gate = JAX_CPU_FLEET["test"]["escalated" if esc else "plain"]
+        agree = {}
+        if not esc:
+            for n in names:
+                a = _add_verdicts(_csv_poses(os.path.join(
+                    run, "pose_result_bop", f"lmo_{n}.csv")), froot,
+                    1 if n == "ape" else FLEET_OBJ_ID)
+                b = _add_verdicts(_csv_poses(os.path.join(
+                    singles[n], "pose_result_bop", f"lmo_{n}.csv")),
+                    froot, 1 if n == "ape" else FLEET_OBJ_ID)
+                agree[n] = sum(a.get(i) == b.get(i) for i in set(a) | set(b))
+        log(f"[fleet] test-fleet {name} (ape, {FLEET_OBJ}: the committed "
+            f"weights), b32: ADD recall@0.1d "
+            + ", ".join(f"{n} {recalls[n]:.4f} (JAX {gate[n]:.4f})"
+                        for n in names)
+            + f"; {launches} kernel launches over {batches} lockstep "
+            f"batches; {frames / wall:.2f} frames/s ({wall:.2f} s)"
+            + (f"; success+ADD verdicts equal to the single `test`s on "
+               + ", ".join(f"{n} {agree[n]}" for n in names)
+               + f" of {n_ape}, {n_can} frames" if agree else "")
+            + f"; timing {json.dumps(timing)}; on {card}")
+        for n in names:
+            check(recalls[n] >= gate[n] - RECALL_SLACK,
+                  f"test-fleet {name}: {n} recall below JAX's less "
+                  f"{RECALL_SLACK}")
+        if agree:
+            # object 0 draws as the single path does; the vmapped
+            # (grouped) convolutions round otherwise, so a logit near 0
+            # may flip a code bit
+            check(agree["ape"] >= 0.9 * n_ape,
+                  "test-fleet: the ape (object 0, the single path's "
+                  "draws) departs from its single `test`")
+        rec["runs"][name] = {"recall": recalls, "launches": launches,
+                             "wall_s": wall, "agree": agree,
+                             "timing": timing}
+    single_turn(1)
+    t = rec["turns"]
+    rec["frames_per_s"] = {"single": [frames / s for s in t["single_s"]],
+                           "fleet": [frames / s for s in t["fleet_s"]]}
+    log(f"[fleet] frames/s in turns (single, fleet, fleet, single; both "
+        f"objects' {frames} frames): the two single `test`s "
+        + " / ".join(f"{x:.2f}" for x in rec["frames_per_s"]["single"])
+        + ", test-fleet " + " / ".join(f"{x:.2f}" for x in
+                                       rec["frames_per_s"]["fleet"])
+        + f" ({np.median(t['single_s']) / np.median(t['fleet_s']):.2f}x); "
+        f"on {card}")
+
+    # members with different weights: a stacking or indexing error
+    # would give one object the other's weights or LUT (the first
+    # FLEET_MIXED_FRAMES frames of each)
+    n_mix = FLEET_MIXED_FRAMES
+    extra = ["--max_samples", str(n_mix)]
+    wall, launches, run = _test_cmd(
+        dev, cfg_test, os.path.join(tmp, "f_fleet_mixed"), names,
+        [CKPT, ckpt8], extra)
+    _, _, run8 = _test_cmd(dev, cfg_test, os.path.join(tmp, "f_single_8"),
+                           [FLEET_OBJ], [ckpt8], extra)
+    _, _, run_ape = _test_cmd(dev, cfg_test,
+                              os.path.join(tmp, "f_single_ape32"), ["ape"],
+                              [CKPT], extra)
+    res = _last_json(open(os.path.join(run, "log.txt")).read())
+    agree, recall = {}, {}
+    for n, oid, single in (("ape", 1, run_ape), (FLEET_OBJ, FLEET_OBJ_ID,
+                                                run8)):
+        v = {who: _add_verdicts(_csv_poses(os.path.join(
+            r, "pose_result_bop", f"lmo_{n}.csv")), froot, oid)
+            for who, r in (("fleet", run), ("single", single))}
+        agree[n] = sum(v["fleet"].get(i) == v["single"].get(i)
+                       for i in set(v["fleet"]) | set(v["single"]))
+        recall[n] = (res["per_object"][n]["ADD_recall_0.1d"],
+                     _logged_metrics(single)["ADD_recall_0.1d"])
+    log(f"[fleet] test-fleet with different weights (ape: the committed "
+        f"checkpoint, {FLEET_OBJ}: phase 8's {os.path.basename(ckpt8)}), "
+        f"the first {n_mix} frames of each: recall fleet / single `test` "
+        + ", ".join(f"{n} {a:.4f} / {b:.4f}" for n, (a, b) in
+                    recall.items())
+        + "; success+ADD verdicts equal on " + ", ".join(
+            f"{n} {a} of {n_mix}" for n, a in agree.items())
+        + f" (the can's draws differ from its single run's); {launches} "
+        f"launches; on {card}")
+    check(agree["ape"] >= 0.9 * n_mix,
+          "test-fleet: the ape departs from its single `test` beside a "
+          "neighbour with other weights")
+    check(abs(recall[FLEET_OBJ][0] - recall[FLEET_OBJ][1]) <= RECALL_SLACK
+          and agree[FLEET_OBJ] >= 0.75 * n_mix,
+          f"test-fleet: {FLEET_OBJ} with phase 8's weights departs from "
+          "its single `test`")
+    rec["mixed"] = {"frames": n_mix, "recall": recall, "agree": agree,
+                    "launches": launches}
+    rec["launches"] = rec["runs"]["plain"]["launches"]
+    return rec
+
+
+def fleet_vivo(dev, card, tmp, froot, cfg_vivo):
+    """Phase 12, item 3: `vivo-fleet` of ape and can over the fleet
+    detections, then `score-bop` on the merged CSV."""
+    import contextlib
+    import io
+
+    from zebrapose_tpu_torch import cli
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+
+    out = os.path.join(tmp, "f_vivo")
+    minimal_epnp_hypotheses.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["vivo-fleet", "--cfg", cfg_vivo, "--obj_names", "ape",
+                   FLEET_OBJ, "--ckpt_files", CKPT, CKPT, "--batch_size",
+                   str(VIVO_BATCH), "--output_dir", out, "--device",
+                   str(dev)])
+    wall = time.perf_counter() - t0
+    launches = minimal_epnp_hypotheses.launches
+    check(rc == 0, f"vivo-fleet returned {rc}")
+    run = _run_dir(out)
+    res = _last_json(open(os.path.join(run, "log.txt")).read())
+    inst = {n: res["per_object"][n]["instances"] for n in ("ape", FLEET_OBJ)}
+    batches = -(-max(inst.values()) // VIVO_BATCH)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["score-bop", "--csv", res["merged_csv"], "--bop_path",
+                       froot, "--dataset", "lmo", "--device", str(dev)])
+    check(rc == 0, f"score-bop returned {rc}")
+    score = _last_json(buf.getvalue())
+    want = JAX_CPU_FLEET["vivo"]["AR"] - AR_SLACK
+    n = sum(inst.values())
+    log(f"[fleet] vivo-fleet (ape, {FLEET_OBJ}), b{VIVO_BATCH}: instances "
+        f"{inst} (JAX {JAX_CPU_FLEET['vivo']['instances']}), solved "
+        + str({k: v["solved"] for k, v in res["per_object"].items()})
+        + f" (JAX {JAX_CPU_FLEET['vivo']['solved']}); {launches} kernel "
+        f"launches over {batches} lockstep batches; {n / wall:.2f} "
+        f"instances/s ({wall:.2f} s); score-bop on the merged CSV: AR "
+        f"{score['AR']:.4f} (vsd {score['AR_vsd']:.4f}, mssd "
+        f"{score['AR_mssd']:.4f}, mspd {score['AR_mspd']:.4f}) over "
+        f"{score['n_targets']} targets; JAX on a CPU AR "
+        f"{JAX_CPU_FLEET['vivo']['AR']:.4f}, gate >= {want:.4f}; on {card}")
+    check(inst == JAX_CPU_FLEET["vivo"]["instances"],
+          "vivo-fleet lost or added instances")
+    check(launches == 2 * batches, f"vivo-fleet launched the kernel "
+          f"{launches} times, not 2 a batch over {batches}")
+    check(score["AR"] >= want, f"vivo-fleet AR below JAX's less {AR_SLACK}")
+    return {"instances": inst, "launches": launches, "wall_s": wall,
+            "AR": {k: v for k, v in score.items() if k.startswith("AR")},
+            "solved": {k: v["solved"] for k, v in res["per_object"].items()}}
+
+
+def fleet_train(dev, card, tmp, cfg_train):
+    """Phase 12, item 4: `train-fleet --from_scratch --bf16` of ape and
+    can, FLEET_STEPS steps with one pose validation at b16; the members'
+    checkpoints in `test`'s loader; ms a fleet step from memory in turns
+    with a single v2 step (v2, fleet, fleet, v2), kernels a step, the
+    card's busy share, peak memory."""
+    import torch
+
+    from zebrapose_tpu_torch import cli
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.eval.runner import load_model
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+    from zebrapose_tpu_torch.train import fleet, trainer
+
+    names = ["ape", FLEET_OBJ]
+    out = os.path.join(tmp, "f_runs")
+    minimal_epnp_hypotheses.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    rc = cli.main(["train-fleet", "--cfg", cfg_train, "--obj_names", *names,
+                   "--from_scratch", "--bf16", "--cache_images",
+                   "--log_freq", str(FLEET_STEPS), "--max_steps",
+                   str(FLEET_STEPS), "--output_dir", out, "--device",
+                   str(dev)])
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = minimal_epnp_hypotheses.launches
+    peak_cmd = torch.cuda.max_memory_allocated(dev)
+    check(rc == 0, f"train-fleet returned {rc}")
+    cfg = ZebraConfig.from_file(cfg_train)
+    val_batches = -(-TREE_FRAMES // 16)
+    rec = {"members": {}, "launches": launches, "wall_s": wall,
+           "peak_bytes_command": peak_cmd}
+    for n in names:
+        run = os.path.join(out, "lmo", n)
+        rows = _metrics_rows(run)
+        losses = [r["value"] for r in rows
+                  if r["tag"] == "train/step_loss_total"]
+        recall = [r["value"] for r in rows
+                  if r["tag"] == "val/ADD_recall_0.1d"]
+        timing = {r["tag"][len("timing/"):]: r["value"] for r in rows
+                  if r["tag"].startswith("timing/")}
+        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        ckpt = os.path.join(run, "checkpoints", "steps",
+                            f"step_{FLEET_STEPS}.pth")
+        load_model(cfg, ckpt, device=dev)        # strict, as `test` loads
+        log(f"[fleet] train-fleet member {n}: {len(losses)} steps, loss "
+            f"mean of the first 10 {first:.4f}, of the last 10 {last:.4f}; "
+            f"val ADD recall@0.1d {recall}; its step_{FLEET_STEPS}.pth "
+            f"loads strictly into `test`'s model")
+        check(len(losses) == FLEET_STEPS and all(np.isfinite(losses)),
+              f"train-fleet {n}: a loss is missing or not finite")
+        check(last < first, f"train-fleet {n}: the loss did not fall")
+        check(len(recall) == 1, f"train-fleet {n}: no pose validation")
+        rec["members"][n] = {"first10": first, "last10": last,
+                             "recall": recall}
+    step_ms = 1e3 * (timing["fit_s"] - timing["val_s"] - timing["log_s"]) \
+        / timing["steps"]
+    log(f"[fleet] train-fleet --from_scratch --bf16 (ape, {FLEET_OBJ}), b"
+        f"{TRAIN_BATCH} a member, {FLEET_STEPS} steps: {wall:.1f} s wall, "
+        f"{step_ms:.1f} ms a fleet step in the command (cuDNN's search "
+        f"included), validation {timing['val_s']:.2f} s; {launches} kernel "
+        f"launches in validation (K x {val_batches} lockstep batches of "
+        f"16); peak device memory {peak_cmd / 2 ** 30:.2f} GiB; on {card}")
+    check(launches >= len(names) * val_batches,
+          "train-fleet: validation did not launch the kernel K times a "
+          "batch")
+
+    # the steps alone, frames from memory, in turns with a single v2
+    # step: v2, fleet, fleet, v2
+    v2 = timed_setup(cfg, "v2", os.path.join(tmp, "f_timed_v2"), dev)
+    fr = fleet.build_fleet_setup(
+        cfg, names, os.path.join(tmp, "f_timed"), pretrained_backbone=None,
+        bf16=True, cache_images=True, log_freq=FLEET_STEPS, device=dev)
+    runs = {"v2": [], "fleet": []}
+    try:
+        for m in fr.members:
+            batches = [next(m.train_iter) for _ in range(4)]
+            m.train_iter.close()
+            m.train_iter = _Batches(batches)
+        for which in ("v2", "fleet", "fleet", "v2"):
+            t = {}
+            if which == "v2":
+                trainer.timed_steps(v2, n_steps=FLEET_TIMED_STEPS,
+                                    warm=FLEET_TIMED_WARM, timing=t)
+            else:
+                torch.cuda.reset_peak_memory_stats(dev)
+                fleet.timed_fleet_steps(fr, n_steps=FLEET_TIMED_STEPS,
+                                        warm=FLEET_TIMED_WARM, timing=t)
+                t["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            runs[which].append(t)
+        busy = {"v2": busy_share(lambda: trainer.timed_steps(
+                    v2, n_steps=5, warm=0), 5),
+                "fleet": busy_share(lambda: fleet.timed_fleet_steps(
+                    fr, n_steps=5, warm=0), 5)}
+    finally:
+        close_setup(v2)
+        for m in fr.members:
+            close_setup(m)
+    ms = {k: [t["host_ms"] for t in v] for k, v in runs.items()}
+    ratio = np.median(ms["fleet"]) / np.median(ms["v2"])
+
+    def share(b):
+        return ("not measured (no device kernels seen)" if b[0] is None
+                else f"{100 * b[0]:.1f}% ({b[1]:.0f} kernels a step)")
+    peak = max(t["peak_bytes"] for t in runs["fleet"])
+    log(f"[fleet] timed steps bf16, b{TRAIN_BATCH} a member (frames from "
+        f"memory), {FLEET_TIMED_STEPS} steps after {FLEET_TIMED_WARM} a "
+        f"turn, turns v2 fleet fleet v2: fleet (K=2) "
+        + " ".join(f"{x:.2f}" for x in ms["fleet"]) + " ms a step, v2 "
+        + " ".join(f"{x:.2f}" for x in ms["v2"]) + f" ms (host clock): the "
+        f"fleet step is {ratio:.2f}x one v2 step, {ratio / 2:.2f}x two; "
+        f"CUDA events fleet " + " ".join(
+            f"{t.get('event_ms', float('nan')):.2f}" for t in runs["fleet"])
+        + f", v2 " + " ".join(f"{t.get('event_ms', float('nan')):.2f}"
+                              for t in runs["v2"])
+        + f" ms; busy under torch.profiler: fleet {share(busy['fleet'])}, "
+        f"v2 {share(busy['v2'])}; fleet peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB; on {card}")
+    rec.update(step_ms=step_ms, timed_ms=ms, ratio=float(ratio),
+               busy={k: {"share": b[0], "kernels_a_step": b[1]}
+                     for k, b in busy.items()},
+               peak_bytes=peak)
+    return rec
+
+
+def fleet_phase(dev, card, tmp):
+    """Phase 12 (see the module docstring), after phases 7-11 under
+    `tmp`; returns its record."""
+    t_phase = time.perf_counter()
+    src = os.path.join(tmp, "bop")
+    froot = os.path.join(tmp, "fleet")
+    t0 = time.perf_counter()
+    cfg_test, cfg_train, cfg_vivo = write_fleet_tree(src, froot)
+    from zebrapose_tpu_torch.data import png
+    same = all(np.array_equal(*(png.imread(os.path.join(
+        r, "lmo", "test", "000001", "rgb", f"{im:06d}.png"))
+        for r in (froot, src))) for im in (0, TREE_FRAMES - 1))
+    log(f"[fleet] tree written in {time.perf_counter() - t0:.1f} s; its "
+        f"frames (Sub rows) decode to phase 7's: {same}")
+    check(same, "the fleet tree's frames differ from phase 7's")
+    best_dir = os.path.join(tmp, "runs", "lmo_ape", "checkpoints", "best")
+    best = sorted(f for f in os.listdir(best_dir) if f.endswith(".pth")) \
+        if os.path.isdir(best_dir) else []
+    steps_dir = os.path.join(tmp, "runs", "lmo_ape", "checkpoints", "steps")
+    ckpt8 = os.path.join(best_dir, best[0]) if best else os.path.join(
+        steps_dir, sorted(os.listdir(steps_dir))[-1])
+    rec = {"options": solver_options(dev, card),
+           "test": fleet_test(dev, card, tmp, froot, cfg_test, ckpt8),
+           "vivo": fleet_vivo(dev, card, tmp, froot, cfg_vivo),
+           "train": fleet_train(dev, card, tmp, cfg_train)}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[fleet] phase 12 took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def _cxx_version():
     from zebrapose_tpu_torch.ops._build import _cxx
 
@@ -2230,6 +2867,8 @@ def main(argv=None) -> int:
         log(f"[tree] {cfg_path}")
         log(f"[tree] {write_train_split(root)}")
         log(f"[tree] {os.path.join(root, 'lmo_ape_vivo.txt')}")
+        for path in write_fleet_tree(root, os.path.join(root, "fleet")):
+            log(f"[tree] {path}")
         return 0
     import torch
 
@@ -2652,13 +3291,14 @@ def main(argv=None) -> int:
         "minimal-set EPnP")
 
     # ---- 7. the test runner, 8. the training path, 9. BOP, 10. prep,
-    # 11. refinement and the model families ----------------------------
+    # 11. refinement and the model families, 12. the fleet --------------
     with tempfile.TemporaryDirectory() as tmp:
         runner = runner_phase(dev, card, tmp)
         train = train_phase(dev, card, tmp)
         bop = bop_phase(dev, card, tmp)
         prep = prep_phase(dev, card, tmp, runner["png_decode_ms"])
         families = families_phase(dev, card, tmp)
+        fleet = fleet_phase(dev, card, tmp)
 
     main_n = 256 * cfg.n_hypotheses                  # the b256 stage
     rec = {"name": "minimal_epnp_hypotheses", "route": "cuda",
@@ -2682,9 +3322,12 @@ def main(argv=None) -> int:
                **{f"train_{k}": v["launches"]
                   for k, v in families["families"].items()},
                **{f"test_{k}": v["test"]["launches"]
-                  for k, v in families["families"].items()}},
+                  for k, v in families["families"].items()},
+               "test_fleet": fleet["test"]["launches"],
+               "vivo_fleet": fleet["vivo"]["launches"],
+               "train_fleet": fleet["train"]["launches"]},
            "runner": runner, "train": train, "bop": bop, "prep": prep,
-           "families": families,
+           "families": families, "fleet": fleet,
            "card": card}
     if ab:
         rec["ab"] = {str(n): v for n, v in ab.items()}

@@ -79,7 +79,8 @@ def test_port_imports_no_jax_in_subprocess():
                 "parallel.mesh", "native", "ops.bop_errors",
                 "eval.bop_score", "eval.vivo", "eval.runner_vivo",
                 "data.jpeg", "data.tiff", "tools.symmetry",
-                "tools.generate_gt", "tools.label_driver"}
+                "tools.generate_gt", "tools.label_driver", "train.fleet",
+                "eval.fleet_serve"}
     assert {"zebrapose_tpu_torch." + m for m in expected} <= \
         set(res["modules"])
     # the port does not touch the TF32 switches: float32 matmuls stay

@@ -16,6 +16,15 @@
       -n 16 --corres_txt Class_CorresPoint000001.txt [--colored_ply c.ply]
   python -m zebrapose_tpu_torch generate-labels --cfg cfg.txt \
       --obj_name ape [--data_folder train_pbr] [--force]
+  python -m zebrapose_tpu_torch train-fleet --cfg cfg.txt \
+      --obj_names ape can [--from_scratch] [--bf16] [--max_steps N] \
+      [--log_freq N] [--device cuda|cpu]
+  python -m zebrapose_tpu_torch test-fleet --cfg cfg.txt \
+      --obj_names ape can --ckpt_files a.pth b.pth [--batch_size N] \
+      [--mask_rcnn] [--roi_slice] [--escalate_h 256] [--device cuda|cpu]
+  python -m zebrapose_tpu_torch vivo-fleet --cfg cfg.txt \
+      --obj_names ape can --ckpt_files a.pth b.pth [--score_threshold 0.2] \
+      [--batch_size N] [--mask_rcnn] [--roi_slice] [--device cuda|cpu]
 
 The flags are those of `python -m zebrapose_tpu train` / `test` /
 `vivo` / `score-bop` plus `--device` (default cuda; without CUDA a
@@ -33,9 +42,15 @@ format. `generate-mesh-code` (a mesh's hierarchical surface code:
 surface code first when it is absent) are host work in both stacks:
 numpy and the port's C++ library (`native/`). They take no `--device` and
 touch no tensor on any device; the JAX package's commands never reach an
-accelerator either, so this is not a CPU fallback. The other commands of
-the JAX package's CLI (among them `vivo-fleet` and `serve-exported
---vivo`) are not ported yet (ROADMAP.md).
+accelerator either, so this is not a CPU fallback. `train-fleet`,
+`test-fleet` and `vivo-fleet` are the fleet commands: K objects' models
+in one program (`train/fleet.py`, `eval/fleet_serve.py`), each member
+writing the single-object command's files under its own name and the
+evaluations one merged submission CSV; `--int8` (A6) and `test-fleet
+--debug` (A7) raise NotImplementedError. The other commands of the JAX
+package's CLI (`export-serving`, `serve-exported [--vivo]`,
+`export-serving-fleet`, `serve-exported-fleet`, `export-ckpt`,
+`model-cost`, `visualize`) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -157,10 +172,124 @@ def _train(args) -> int:
     return 0
 
 
+def _add_fleet(sub):
+    p = sub.add_parser(
+        "train-fleet",
+        help="train K objects at once, one model per object, in one "
+             "program (the reference runs one process per object)")
+    p.add_argument("--cfg", required=True,
+                   help="reference-format config (shared)")
+    p.add_argument("--obj_names", required=True, nargs="+",
+                   help="the K objects")
+    p.add_argument("--output_dir", default="runs")
+    p.add_argument("--variant", default="v2", choices=["v1", "v2", "v3"])
+    p.add_argument("--pretrained_backbone", default="auto")
+    p.add_argument("--from_scratch", action="store_true")
+    p.add_argument("--gamma", type=float, default=1.0)
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--log_freq", type=int, default=1000)
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--cache_images", action="store_true")
+    _add_device(p)
+
+    for name, what in (("test-fleet", "evaluate K objects with one fleet "
+                        "program (per-object CSV + metrics, one merged "
+                        "submission CSV)"),
+                       ("vivo-fleet", "multi-instance eval of K objects "
+                        "with one fleet program")):
+        p = sub.add_parser(name, help=what)
+        p.add_argument("--cfg", required=True)
+        p.add_argument("--obj_names", required=True, nargs="+")
+        p.add_argument("--ckpt_files", required=True, nargs="+",
+                       help="one checkpoint (.npz or .pth) per object")
+        p.add_argument("--output_dir", default="eval_out")
+        p.add_argument("--variant", default="v2",
+                       choices=["v1", "v2", "v3"])
+        if name == "vivo-fleet":
+            p.add_argument("--score_threshold", type=float, default=0.2)
+        p.add_argument("--batch_size", type=int, default=16)
+        if name == "test-fleet":
+            p.add_argument("--max_samples", type=int, default=None)
+        p.add_argument("--int8", action="store_true",
+                       help="int8 conv compute (not ported yet)")
+        p.add_argument("--mask_rcnn", action="store_true",
+                       help="each object's detector RLE segmentation "
+                            "instead of its mask head")
+        p.add_argument("--roi_slice", action="store_true",
+                       help="ship only each frame's clamped square-bbox "
+                            "bytes (a fleet-wide buffer; bit-exact crops)")
+        if name == "test-fleet":
+            p.add_argument("--debug", action="store_true",
+                           help="debug dumps (not ported yet)")
+        _add_pnp_flags(p)
+        _add_device(p)
+
+
+def _train_fleet(args) -> int:
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.train.fleet import build_fleet_setup, fit_fleet
+    from zebrapose_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = ZebraConfig.from_file(args.cfg)
+    fleet = build_fleet_setup(
+        cfg, args.obj_names, os.path.join(args.output_dir,
+                                          cfg.dataset_name),
+        variant=args.variant,
+        pretrained_backbone=(None if args.from_scratch
+                             else args.pretrained_backbone),
+        bf16=args.bf16, gamma=args.gamma, log_freq=args.log_freq,
+        cache_images=args.cache_images, device=device)
+    timing = {}
+    try:
+        best = fit_fleet(fleet, log_freq=args.log_freq,
+                         max_steps=args.max_steps, timing=timing)
+        # where this run's time went, in seconds (fit_fleet's stages)
+        for m in fleet.members:
+            m.logger.log(fleet.state.step, timing, prefix="timing/")
+    finally:
+        for m in fleet.members:
+            m.ckpt.close()
+            m.logger.close()
+    for name, b in zip(args.obj_names, best):
+        print(f"{name}: best val recall {b}")
+    return 0
+
+
+def _eval_fleet(args, device) -> int:
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.eval import fleet_serve
+    from zebrapose_tpu_torch.utils.logging import TeeOutput, prepare_eval_dir
+
+    cfg = ZebraConfig.from_file(args.cfg)
+    items = dict(cfg.to_dict())
+    items.update({"obj_names": " ".join(args.obj_names),
+                  "checkpoint_files": " ".join(args.ckpt_files),
+                  "command": args.command, "device": str(device)})
+    run_dir = prepare_eval_dir(args.output_dir, items)
+    kw = dict(variant=args.variant, batch_size=args.batch_size,
+              int8=args.int8, mask_rcnn=args.mask_rcnn,
+              roi_slice=args.roi_slice, pnp_cfg=_pnp_cfg_from_args(args),
+              device=device)
+    with TeeOutput(os.path.join(run_dir, "log.txt")):
+        print(f"eval run dir: {run_dir}")
+        if args.command == "test-fleet":
+            res = fleet_serve.run_test_fleet(
+                cfg, args.obj_names, args.ckpt_files, run_dir,
+                max_samples=args.max_samples, debug=args.debug, **kw)
+        else:
+            res = fleet_serve.run_vivo_fleet(
+                cfg, args.obj_names, args.ckpt_files, run_dir,
+                score_threshold=args.score_threshold, **kw)
+        print(json.dumps(res, indent=2))
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="zebrapose_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_train(sub)
+    _add_fleet(sub)
 
     p_test = sub.add_parser("test", help="evaluate one object (test.py)")
     p_test.add_argument("--cfg", required=True, help="reference-format config")
@@ -246,6 +375,8 @@ def main(argv=None):
 
     if args.command == "train":
         return _train(args)
+    if args.command == "train-fleet":
+        return _train_fleet(args)
     if args.command == "merge-csv":
         from zebrapose_tpu_torch.data.bop_writer import merge_csv
         merge_csv(args.csvs, args.out)
@@ -275,6 +406,8 @@ def main(argv=None):
     from zebrapose_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
+    if args.command in ("test-fleet", "vivo-fleet"):
+        return _eval_fleet(args, device)
     if args.command == "score-bop":
         from zebrapose_tpu_torch.eval.bop_score import score_csv
         res = score_csv(args.csv, args.bop_path, args.dataset,

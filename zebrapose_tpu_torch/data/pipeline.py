@@ -179,6 +179,7 @@ class CropDatasetHost:
                 "roi_slice supports crop_square_resize only")
         self.roi_slice = roi_slice
         self._slice_hw: Optional[tuple] = None
+        self._forced_slice_hw: Optional[tuple] = None
 
     def __len__(self):
         return len(self.rgb_files)
@@ -301,8 +302,9 @@ class CropDatasetHost:
     def _slice_buffer_hw(self, im_h: int, im_w: int):
         """Dataset-wide buffer dims for roi_slice: the max padded square
         side over every sample's eval bbox, rounded up to a multiple of
-        16 and capped at the frame dims (one shape per run). Frames of
-        differing sizes within one dataset are rejected."""
+        16 and capped at the frame dims (one shape per run), or the size
+        `set_slice_hw` imposed when it covers that. Frames of differing
+        sizes within one dataset are rejected."""
         if self._slice_hw is not None:
             hw, cap = self._slice_hw
             if cap != (im_h, im_w):
@@ -316,8 +318,36 @@ class CropDatasetHost:
             max_side = max(max_side, int(square_bbox(bbox)[4]))
         side = -(-max_side // 16) * 16
         hw = (min(side, im_h), min(side, im_w))
+        if self._forced_slice_hw is not None:
+            fh, fw = self._forced_slice_hw
+            if fh < hw[0] or fw < hw[1]:
+                raise ValueError(
+                    f"forced roi_slice buffer {self._forced_slice_hw} is "
+                    f"smaller than this dataset needs ({hw}) — real "
+                    f"pixels would be dropped")
+            hw = (min(fh, im_h), min(fw, im_w))
         self._slice_hw = (hw, (im_h, im_w))
         return hw
+
+    def natural_slice_hw(self) -> tuple:
+        """The buffer dims this dataset would use on its own (reads one
+        frame for the cap). The fleet takes the elementwise max over its
+        K objects' naturals and imposes it with set_slice_hw, so the
+        stacked lockstep batches share one shape."""
+        img = self._imread(self.rgb_files[0])
+        saved, self._slice_hw = self._slice_hw, None
+        forced, self._forced_slice_hw = self._forced_slice_hw, None
+        try:
+            return self._slice_buffer_hw(img.shape[0], img.shape[1])
+        finally:
+            self._slice_hw, self._forced_slice_hw = saved, forced
+
+    def set_slice_hw(self, hw: tuple) -> None:
+        """Impose a shared roi_slice buffer size (the fleet's max). It
+        must cover this dataset's own natural size, which is checked on
+        first use."""
+        self._forced_slice_hw = (int(hw[0]), int(hw[1]))
+        self._slice_hw = None
 
     def _slice_roi(self, out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """Byte-slice the clamped square-bbox region of every pixel array

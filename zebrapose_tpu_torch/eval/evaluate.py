@@ -14,6 +14,7 @@ ADD_result.txt; test.py:465-561).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import queue as queue_mod
@@ -150,6 +151,75 @@ def batch_generator(seed: int, start: int, device) -> torch.Generator:
         (int(seed) << 32) + int(start))
 
 
+@contextlib.contextmanager
+def prefetched(collate: Callable, starts: Sequence[int], num_workers: int,
+               clock: Dict[str, float]):
+    """Collate batches ahead of the device loop: a producer thread runs
+    `collate(start, pool)` for each start into a queue of two (reads on a
+    pool of `num_workers` threads; 0 = in the producer), and the block
+    gets an iterator of (start, batch). `clock["collate_s"]` adds the
+    producer's collates, `clock["wait_s"]` the loop's waits for a batch.
+    A producer's error is raised in the loop; neither the producer nor
+    the pool outlives the block."""
+    q: "queue_mod.Queue" = queue_mod.Queue(maxsize=2)
+    stop = threading.Event()
+    pool = ThreadPoolExecutor(max_workers=num_workers) \
+        if num_workers > 0 else None
+
+    def _put(item):
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=1.0)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for start in starts:
+                if stop.is_set():
+                    return
+                t0 = time.perf_counter()
+                item = collate(start, pool)
+                clock["collate_s"] += time.perf_counter() - t0
+                if not _put((start, item)):
+                    return
+            _put(None)
+        except BaseException as e:  # handed to the consumer, re-raised
+            _put(e)
+
+    def batches():
+        while True:
+            t0 = time.perf_counter()
+            item = q.get()
+            clock["wait_s"] += time.perf_counter() - t0
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        yield batches()
+        thread.join()
+    except BaseException:
+        # stop and unblock the producer so it does not outlive the block
+        stop.set()
+        try:
+            while True:
+                q.get_nowait()
+        except queue_mod.Empty:
+            pass
+        thread.join(timeout=10.0)
+        raise
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+
 def run_inference(dataset: CropDatasetHost, eval_step,
                   batch_size: int = 16, seed: int = 0,
                   num_workers: int = 4, device=None,
@@ -188,38 +258,10 @@ def run_inference(dataset: CropDatasetHost, eval_step,
     extra = ([] if not collect_masks else [[], []]) + \
         ([] if not collect_codes else [[]])
 
-    q: "queue_mod.Queue" = queue_mod.Queue(maxsize=2)
-    stop = threading.Event()
-    pool = ThreadPoolExecutor(max_workers=num_workers) \
-        if num_workers > 0 else None
-
-    def _put(item):
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=1.0)
-                return True
-            except queue_mod.Full:
-                continue
-        return False
-
-    def producer():
-        try:
-            for start in range(0, n, batch_size):
-                if stop.is_set():
-                    return
-                idx = list(range(start, min(start + batch_size, n)))
-                t0 = time.perf_counter()
-                raw = _pad_to(dataset.collate(idx, executor=pool),
-                              batch_size)
-                clock["collate_s"] += time.perf_counter() - t0
-                if not _put((start, len(idx), raw)):
-                    return
-            _put(None)
-        except BaseException as e:  # handed to the consumer, re-raised
-            _put(e)
-
-    thread = threading.Thread(target=producer, daemon=True)
-    thread.start()
+    def collate(start, pool):
+        idx = list(range(start, min(start + batch_size, n)))
+        return len(idx), _pad_to(dataset.collate(idx, executor=pool),
+                                 batch_size)
 
     def consume(start, m, out):
         t0 = time.perf_counter()
@@ -231,16 +273,9 @@ def run_inference(dataset: CropDatasetHost, eval_step,
         clock["fetch_s"] += time.perf_counter() - t0
 
     pending = None
-    try:
-        while True:
-            t0 = time.perf_counter()
-            item = q.get()
-            clock["wait_s"] += time.perf_counter() - t0
-            if item is None:
-                break
-            if isinstance(item, BaseException):
-                raise item
-            start, m, raw = item
+    with prefetched(collate, range(0, n, batch_size), num_workers,
+                    clock) as batches:
+        for start, (m, raw) in batches:
             feed = {k: raw[k] for k in _FEED_KEYS}
             kw = ({"draws": draws_for(start)} if draws_for is not None
                   else {"generator": batch_generator(seed, start, dev)})
@@ -259,20 +294,6 @@ def run_inference(dataset: CropDatasetHost, eval_step,
             pending = (start, m, out)
         if pending is not None:
             consume(*pending)
-        thread.join()
-    except BaseException:
-        # stop and unblock the producer so it does not outlive this call
-        stop.set()
-        try:
-            while True:
-                q.get_nowait()
-        except queue_mod.Empty:
-            pass
-        thread.join(timeout=10.0)
-        raise
-    finally:
-        if pool is not None:
-            pool.shutdown(wait=True, cancel_futures=True)
     if timing is not None:
         timing.update(clock, inference_s=time.perf_counter() - t_run)
         if spans:

@@ -209,17 +209,22 @@ class ObjectEval:
 def prepare_object_eval(cfg: ZebraConfig, obj_name: str,
                         max_samples: Optional[int] = None,
                         mask_rcnn: bool = False,
-                        roi_slice: bool = False) -> ObjectEval:
+                        roi_slice: bool = False,
+                        samples=None) -> ObjectEval:
     """Assemble one object's eval inputs: BOP walk (+BOP-challenge
     targets), detection ingestion (+ycbv keyframes), dataset, LUT, mesh
-    geometry (test.py:85-240 setup)."""
+    geometry (test.py:85-240 setup).
+
+    samples: a walked split to share between objects (the walk does not
+    depend on the object outside BOP-challenge mode, whose walk is
+    rebuilt per object; the fleet walks once for its K objects)."""
     obj_id = lookup_obj_id(cfg.dataset_name, obj_name)
 
     if cfg.bop_challange:
         samples = bop_io.get_bop_challenge_test_data(
             cfg.bop_path, cfg.dataset_name, obj_id,
             data_folder=cfg.test_folder)
-    else:
+    elif samples is None:
         samples = bop_io.get_dataset(cfg.bop_path, cfg.dataset_name,
                                      train=False, eval_model=True,
                                      data_folder=cfg.test_folder)

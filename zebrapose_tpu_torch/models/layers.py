@@ -45,13 +45,16 @@ class TorchBatchNorm(nn.BatchNorm2d):
     update uses the unbiased one, n/(n-1) larger). Both normalize the
     batch with the biased variance, so outputs and gradients are
     torch's. The fused kernel updates a copy of the [C] buffer, from
-    which the buffer is set. Eval mode is nn.BatchNorm2d's."""
+    which the buffer is set. Eval mode is nn.BatchNorm2d's, in plain
+    tensor ops under torch.func transforms (`_eval_tensor_ops`)."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
+            if torch._C._functorch.is_functorch_wrapped_tensor(x):
+                return self._eval_tensor_ops(x)
             return super().forward(x)
         self.num_batches_tracked.add_(1)
         # autograd keeps the variance buffer the kernel got: hand it a
@@ -65,6 +68,17 @@ class TorchBatchNorm(nn.BatchNorm2d):
             keep = (1.0 - self.momentum) * self.running_var
             self.running_var.copy_(keep + (fused - keep) * ((n - 1) / n))
         return y
+
+    def _eval_tensor_ops(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval mode in plain tensor ops, for the fleet's vmapped forward
+        (torch.func): there CUDA's batch_norm asks its input for a
+        memory format, which vmap cannot answer. A bf16 activation is
+        widened exactly."""
+        shape = (1, -1, 1, 1)
+        x = x.to(self.running_var.dtype)
+        y = (x - self.running_mean.view(shape)) * torch.rsqrt(
+            self.running_var.view(shape) + self.eps)
+        return y * self.weight.view(shape) + self.bias.view(shape)
 
 
 def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:

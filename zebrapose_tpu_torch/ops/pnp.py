@@ -9,9 +9,17 @@ vmaps it, these functions carry the batch as explicit leading dims:
     works on a <= max_points subset: one random foreground
     representative per contiguous raster block plus an exact compaction
     of the first min(64, max_points/8) foreground pixels.
-  * hypotheses: n_hypotheses minimal 6-point sets by inverse-CDF
-    sampling, solved by the hypothesis kernel (`ops/pnp_kernel.py`: the
-    CUDA kernel for CUDA tensors, its plain version for CPU tensors).
+  * hypotheses: n_hypotheses minimal sets by inverse-CDF sampling,
+    solved by `_solve_hypotheses`. Width-6 EPnP with fast_linalg (the
+    default, sample_size <= 6) is the hypothesis kernel
+    (`ops/pnp_kernel.py`: the CUDA kernel for CUDA tensors, its plain
+    version for CPU tensors). The solver options run as torch ops on
+    the run's device, the card included: `hyp_solver="dlt"` (`dlt_p6p`),
+    `fast_linalg=False` (`torch.linalg.eigh` / `svd` / `det`) and
+    `sample_size > 6`. That is the JAX package's own split, not a
+    fallback: its `minimal_epnp_hypotheses` leaves the Pallas kernel for
+    fast=False and widths other than 6, and DLT never reaches it, so
+    those options run as jnp on the TPU there.
   * scoring, refit on the inliers, SE(3) polish and the success gate
     (`_ransac_finish`) are plain torch, as they are plain XLA in JAX.
 
@@ -34,15 +42,12 @@ from typing import Optional, Tuple
 import torch
 
 from zebrapose_tpu_torch.ops.fast_linalg import (
+    _det3,
     _sign,
     polar_rotation,
     smallest_subspace,
     solve_psd_small,
 )
-
-_UNPORTED = ("is not ported yet (see ROADMAP.md, queue A); the port runs "
-             "hyp_solver='epnp', fast_linalg=True, sample_size <= 6")
-
 
 @dataclasses.dataclass(frozen=True)
 class PnPConfig:
@@ -81,14 +86,8 @@ class RansacDraws:
 
 
 def _check_cfg(cfg: PnPConfig) -> None:
-    if cfg.hyp_solver != "epnp":
-        raise NotImplementedError(f"hyp_solver={cfg.hyp_solver!r} "
-                                  + _UNPORTED)
-    if not cfg.fast_linalg:
-        raise NotImplementedError("fast_linalg=False " + _UNPORTED)
-    if cfg.sample_size > 6:
-        raise NotImplementedError(f"sample_size={cfg.sample_size} "
-                                  + _UNPORTED)
+    if cfg.hyp_solver not in ("epnp", "dlt"):
+        raise ValueError(f"hyp_solver={cfg.hyp_solver!r}: 'epnp' or 'dlt'")
 
 
 def _uniform(shape, given: Optional[torch.Tensor],
@@ -126,21 +125,58 @@ _PAIRS_P = (0, 0, 0, 1, 1, 2)
 _PAIRS_Q = (1, 2, 3, 2, 3, 3)
 
 
-def _control_points(pts: torch.Tensor, w: torch.Tensor
+def _control_points(pts: torch.Tensor, w: torch.Tensor, fast: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """World control points [..., 4, 3] + barycentric coords [..., N, 4]:
-    the weighted centroid plus per-axis rms-scaled axis points."""
+    the weighted centroid plus three scaled axes, per-axis rms spreads
+    along x, y, z (fast=True) or the weighted-PCA axes (fast=False).
+    Scales are floored so planar point sets stay non-degenerate."""
     wsum = torch.clamp_min(w.sum(-1), 1e-8)[..., None]
     c0 = (pts * w[..., None]).sum(-2) / wsum
     d = pts - c0[..., None, :]
-    var = (d * d * w[..., None]).sum(-2) / wsum                # [..., 3]
-    scale = torch.sqrt(torch.maximum(
-        var, 1e-6 * var.amax(-1, keepdim=True) + 1e-9))
-    ctrl = torch.cat([c0[..., None, :],
-                      c0[..., None, :] + torch.diag_embed(scale)], dim=-2)
-    a123 = d / scale[..., None, :]
+    if fast:
+        var = (d * d * w[..., None]).sum(-2) / wsum            # [..., 3]
+        scale = torch.sqrt(torch.maximum(
+            var, 1e-6 * var.amax(-1, keepdim=True) + 1e-9))
+        ctrl = torch.cat([c0[..., None, :],
+                          c0[..., None, :] + torch.diag_embed(scale)], -2)
+        a123 = d / scale[..., None, :]
+    else:
+        cov = (d * w[..., None]).transpose(-1, -2) @ d / wsum[..., None]
+        evals, evecs = _eigh(cov)                              # ascending
+        scale = torch.sqrt(torch.maximum(
+            evals, 1e-6 * evals.amax(-1, keepdim=True) + 1e-9))
+        axes = evecs * scale[..., None, :]       # columns = scaled axes
+        ctrl = torch.cat([c0[..., None, :],
+                          c0[..., None, :] + axes.transpose(-1, -2)], -2)
+        inv_axes = evecs / torch.clamp_min(scale[..., None, :], 1e-12)
+        a123 = d @ inv_axes                                    # [..., N, 3]
     a0 = 1.0 - a123.sum(-1, keepdim=True)
     return ctrl, torch.cat([a0, a123], dim=-1)
+
+
+def _eigh(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """torch.linalg.eigh of symmetric [..., n, n] (ascending); a matrix
+    with a non-finite entry gives NaN, as jnp.linalg.eigh does, where
+    LAPACK / cuSOLVER would stop the whole batch with an error."""
+    bad = ~torch.isfinite(A).all(-1).all(-1)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    evals, evecs = torch.linalg.eigh(torch.where(bad[..., None, None], eye,
+                                                 A))
+    return (torch.where(bad[..., None], torch.nan, evals),
+            torch.where(bad[..., None, None], torch.nan, evecs))
+
+
+def _svd_rotation(H: torch.Tensor) -> torch.Tensor:
+    """The proper rotation U diag(1, 1, sign det(U Vᵀ)) Vᵀ nearest
+    [..., 3, 3] by SVD (NaN for a non-finite matrix, as in JAX)."""
+    bad = ~torch.isfinite(H).all(-1).all(-1)
+    eye = torch.eye(3, dtype=H.dtype, device=H.device)
+    U, _, Vh = torch.linalg.svd(torch.where(bad[..., None, None], eye, H))
+    d = _sign(torch.linalg.det(U @ Vh))
+    D = torch.diag_embed(torch.stack(
+        [torch.ones_like(d), torch.ones_like(d), d], -1))
+    return torch.where(bad[..., None, None], torch.nan, U @ D @ Vh)
 
 
 def _build_mtm(alphas: torch.Tensor, pts2d: torch.Tensor, w: torch.Tensor,
@@ -249,27 +285,28 @@ def _gauss_newton_betas(L: torch.Tensor, rho: torch.Tensor,
     return betas
 
 
-def _procrustes(pw: torch.Tensor, pc: torch.Tensor, w: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Weighted rigid fit pc ~= R pw + t, R by the Newton polar factor."""
+def _procrustes(pw: torch.Tensor, pc: torch.Tensor, w: torch.Tensor,
+                fast: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted rigid fit pc ~= R pw + t, R by the Newton polar factor
+    (fast=True) or the SVD (fast=False)."""
     wsum = torch.clamp_min(w.sum(-1), 1e-8)[..., None]
     cw = (pw * w[..., None]).sum(-2) / wsum
     cc = (pc * w[..., None]).sum(-2) / wsum
     H = ((pc - cc[..., None, :]) * w[..., None]).transpose(-1, -2) @ (
         pw - cw[..., None, :])
-    R = polar_rotation(H)
+    R = polar_rotation(H) if fast else _svd_rotation(H)
     t = cc - (R @ cw[..., None])[..., 0]
     return R, t
 
 
-def _pose_from_betas(betas, V, alphas, pts3d, w):
+def _pose_from_betas(betas, V, alphas, pts3d, w, fast: bool = True):
     x = (V @ betas[..., None])[..., 0]                         # [..., 12]
     cc = x.reshape(x.shape[:-1] + (4, 3))
     pc = alphas @ cc                                           # camera frame
     wsum = torch.clamp_min(w.sum(-1), 1e-8)
     zmean = (pc[..., 2] * w).sum(-1) / wsum
     flip = torch.where(zmean < 0, -1.0, 1.0)
-    return _procrustes(pts3d, pc * flip[..., None, None], w)
+    return _procrustes(pts3d, pc * flip[..., None, None], w, fast)
 
 
 def _so3_exp(w: torch.Tensor) -> torch.Tensor:
@@ -333,6 +370,34 @@ def gauss_newton_pose_polish(pts3d: torch.Tensor, pts2d: torch.Tensor,
     return R, t
 
 
+def dlt_p6p(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
+            fast: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Direct P6P: [..., S >= 6, 3], [..., S, 2], K [..., 3, 3] ->
+    (R [..., 3, 3], t [..., 3]).
+
+    The DLT rows are EPnP's M rows with the homogeneous frame as control
+    points (alphas = [X, 1]); the null vector stacks the columns of s·R
+    and s·t. s comes from the determinant, orthogonality from one polar
+    projection. Poor on near-planar minimal sets and ~30x worse than
+    EPnP on 0.5 px noise (JAX's measurement), so it is an option
+    (`PnPConfig.hyp_solver`). fast=True: the k=1 inverse subspace
+    iteration and the Newton polar factor; fast=False: eigh and SVD.
+    """
+    alphas = torch.cat([pts3d, torch.ones_like(pts3d[..., :1])], -1)
+    mtm = _build_mtm(alphas, pts2d, torch.ones_like(pts3d[..., 0]), K)
+    if fast:
+        v = smallest_subspace(mtm, k=1)[..., 0]                # [..., 12]
+    else:
+        v = _eigh(mtm)[1][..., 0]
+    cols = v.reshape(v.shape[:-1] + (4, 3))  # rows: s·R's columns, s·t
+    R_tilde = cols[..., :3, :].transpose(-1, -2)
+    det = _det3(R_tilde)
+    s = _sign(det) * torch.pow(torch.clamp_min(det.abs(), 1e-20), 1.0 / 3)
+    R_n = R_tilde / s[..., None, None]
+    R = polar_rotation(R_n) if fast else _svd_rotation(R_n)
+    return R, cols[..., 3, :] / s[..., None]
+
+
 def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, w: torch.Tensor,
          K: torch.Tensor, gn_iters: int = 5, fast: bool = True
          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -342,12 +407,13 @@ def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, w: torch.Tensor,
     The three closed-form beta initializations run side by side as one
     extra batch dim (JAX vmaps them), each Gauss-Newton refined; the one
     with the lowest weighted reprojection error wins (first on ties).
+    fast=True: axis-aligned control points, the k=4 inverse subspace
+    iteration and the Newton polar factor; fast=False: weighted-PCA
+    control points, eigh for the null-space basis and SVD Procrustes.
     """
-    if not fast:
-        raise NotImplementedError("fast=False (eigh/svd EPnP) " + _UNPORTED)
-    ctrl_w, alphas = _control_points(pts3d, w)
+    ctrl_w, alphas = _control_points(pts3d, w, fast)
     mtm = _build_mtm(alphas, pts2d, w, K)
-    V = smallest_subspace(mtm, k=4)
+    V = smallest_subspace(mtm, k=4) if fast else _eigh(mtm)[1][..., :4]
     L, rho = _l6x10_and_rho(V, ctrl_w)
     betas0 = torch.stack([_betas_case1(L, rho), _betas_case2(L, rho),
                           _betas_case3(L, rho)], dim=-2)      # [..., 3, 4]
@@ -355,7 +421,7 @@ def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, w: torch.Tensor,
                                 betas0, gn_iters)
     Rs, ts = _pose_from_betas(betas, V[..., None, :, :],
                               alphas[..., None, :, :],
-                              pts3d[..., None, :, :], w[..., None, :])
+                              pts3d[..., None, :, :], w[..., None, :], fast)
     proj = project_points(pts3d[..., None, :, :], Rs, ts,
                           K[..., None, :, :])
     se = ((proj - pts2d[..., None, :, :]) ** 2).sum(-1)
@@ -388,9 +454,9 @@ def _ransac_prepare(pts3d: torch.Tensor, pts2d: torch.Tensor,
                     generator: Optional[torch.Generator] = None):
     """Subset build + minimal-set sampling for [B, P] correspondences.
 
-    Returns (sub3d [B,Q,3], sub2d [B,Q,2], sub_w [B,Q], samp3d [B,H,6,3],
-    samp2d [B,H,6,2], n_fg [B]); n_fg is the TRUE count of w > 0
-    correspondences, for the success gate.
+    Returns (sub3d [B,Q,3], sub2d [B,Q,2], sub_w [B,Q], samp3d [B,H,S,3],
+    samp2d [B,H,S,2], n_fg [B]) with S = max(sample_size, 6); n_fg is
+    the TRUE count of w > 0 correspondences, for the success gate.
     """
     B, P = w.shape
     dev = w.device
@@ -440,8 +506,11 @@ def _draw_minimal_samples(sub3d: torch.Tensor, sub2d: torch.Tensor,
                           generator: Optional[torch.Generator] = None):
     """n_hyp minimal sets per instance, uniform over the w > 0 subset
     with replacement (inverse-CDF). sample_size < 6 is padded to the
-    kernel's width 6 by repeating the last draw.
-    Returns (samp3d [B, n_hyp, 6, 3], samp2d [B, n_hyp, 6, 2])."""
+    kernel's width 6 by repeating the last draw (a duplicated
+    correspondence only double-weights one point of the least-squares
+    solve); larger sizes keep their width.
+    Returns (samp3d [B, n_hyp, S, 3], samp2d [B, n_hyp, S, 2]),
+    S = max(sample_size, 6)."""
     B, Q = sub_w.shape
     S = cfg.sample_size
     cdf = torch.cumsum((sub_w > 0).float(), dim=-1)
@@ -457,6 +526,33 @@ def _draw_minimal_samples(sub3d: torch.Tensor, sub2d: torch.Tensor,
     samp2d = torch.gather(sub2d, 1, flat[..., None].expand(-1, -1, 2))
     return (samp3d.reshape(B, n_hyp, s_eff, 3),
             samp2d.reshape(B, n_hyp, s_eff, 2))
+
+
+def _solve_hypotheses(samp3d: torch.Tensor, samp2d: torch.Tensor,
+                      Ks: torch.Tensor, cfg: PnPConfig
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Minimal-set solves of [B, H, S, .] samples with Ks [B, 3, 3] ->
+    (Rs [B, H, 3, 3], ts [B, H, 3]).
+
+    Width-6 EPnP with fast_linalg is one launch of the hypothesis kernel
+    over the B·H solves (`ops/pnp_kernel.py`). DLT, fast_linalg=False and
+    widths above 6 are torch ops on the samples' device, as JAX runs
+    them as jnp outside its Pallas kernel (see the module docstring).
+    """
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+
+    B, H, S = samp3d.shape[:3]
+    if cfg.hyp_solver == "epnp" and cfg.fast_linalg and S == 6:
+        Rs, ts = minimal_epnp_hypotheses(
+            samp3d.reshape(B * H, 6, 3).contiguous(),
+            samp2d.reshape(B * H, 6, 2).contiguous(),
+            Ks.repeat_interleave(H, dim=0).contiguous(), cfg.gn_iters)
+        return Rs.reshape(B, H, 3, 3), ts.reshape(B, H, 3)
+    Kh = Ks[:, None].expand(B, H, 3, 3)
+    if cfg.hyp_solver == "dlt":
+        return dlt_p6p(samp3d, samp2d, Kh, cfg.fast_linalg)
+    return epnp(samp3d, samp2d, torch.ones_like(samp3d[..., 0]), Kh,
+                cfg.gn_iters, cfg.fast_linalg)
 
 
 def _ransac_finish(sub3d, sub2d, sub_w, Rs, ts, K, n_fg, cfg: PnPConfig):
@@ -483,7 +579,8 @@ def _ransac_finish(sub3d, sub2d, sub_w, Rs, ts, K, n_fg, cfg: PnPConfig):
         for _ in range(cfg.refine_iters):
             w_in = inl.to(s3.dtype)
             enough = w_in.sum(-1) >= cfg.min_points
-            R2, t2 = epnp(s3, s2, w_in, Kb, cfg.gn_iters)
+            R2, t2 = epnp(s3, s2, w_in, Kb, cfg.gn_iters,
+                          cfg.fast_linalg)
             inl2 = inliers_of(R2, t2, s3, s2, Kb, fgb)
             better = enough & (inl2.sum(-1) >= inl.sum(-1))
             R = torch.where(better[:, None, None], R2, R)
@@ -559,6 +656,83 @@ def _correspondences(mask, code, lut_points, lut_valid, bbox,
     return g[..., :3], orig.float(), fg
 
 
+def _ransac(sub3d, sub2d, sub_w, samp3d, samp2d, n_fg, Ks,
+            cfg: PnPConfig, u2: Optional[torch.Tensor],
+            generator: Optional[torch.Generator]):
+    """RANSAC over prepared [B, ...] subsets and samples: hypotheses,
+    scoring / refit / polish, and the escalation stage. JAX gates stage
+    2 with one lax.cond over the batch; here the same batch-level gate
+    costs one host sync (needs.any().item())."""
+    Rs, ts = _solve_hypotheses(samp3d, samp2d, Ks, cfg)
+    res = _ransac_finish(sub3d, sub2d, sub_w, Rs, ts, Ks, n_fg, cfg)
+    if cfg.escalate_hypotheses <= 0:
+        return res
+    R1, t1, ok1, n_in1 = res
+    needs = _escalation_needed(ok1, n_in1, n_fg, cfg)
+    if not bool(needs.any().item()):
+        return res
+    s3, s2 = _draw_minimal_samples(sub3d, sub2d, sub_w, cfg,
+                                   cfg.escalate_hypotheses, u2, generator)
+    Rs2, ts2 = _solve_hypotheses(s3, s2, Ks, cfg)
+    R2, t2, ok2, n_in2 = _ransac_finish(sub3d, sub2d, sub_w, Rs2, ts2, Ks,
+                                        n_fg, cfg)
+    better = needs & (n_in2 > n_in1)
+    return (torch.where(better[:, None, None], R2, R1),
+            torch.where(better[:, None], t2, t1),
+            torch.where(better, ok2, ok1),
+            torch.where(better, n_in2, n_in1))
+
+
+def _one(draws: Optional[RansacDraws]) -> RansacDraws:
+    """One instance's draws (prio [P_pad], u [H, S], u2 [H2, S]) as a
+    batch of one."""
+    draws = draws or RansacDraws()
+    return RansacDraws(*(None if x is None else torch.as_tensor(x)[None]
+                         for x in (draws.prio, draws.u, draws.u2)))
+
+
+def ransac_pnp(pts3d, pts2d, w, K, cfg: PnPConfig = PnPConfig(),
+               generator: Optional[torch.Generator] = None,
+               draws: Optional[RansacDraws] = None, device=None):
+    """RANSAC + weighted EPnP over one instance's fixed-shape
+    correspondences: pts3d [P, 3], pts2d [P, 2], w [P] in {0, 1}, K
+    [3, 3] -> (R [3, 3], t [3], success, n_inliers), 0-d tensors for
+    the last two. `draws` holds this instance's uniforms (prio [P_pad],
+    u [n_hypotheses, S], u2 [escalate_hypotheses, S]), else they come
+    from `generator`. The batch path (`decode_to_pose_batch`) on a
+    batch of one: the same hypothesis solver, kernel included."""
+    from zebrapose_tpu_torch.utils.device import resolve_device
+
+    _check_cfg(cfg)
+    dev = resolve_device(device, pts3d, pts2d, w)
+    f32 = dict(device=dev, dtype=torch.float32)
+    d = _one(draws)
+    prep = _ransac_prepare(torch.as_tensor(pts3d, **f32)[None],
+                           torch.as_tensor(pts2d, **f32)[None],
+                           torch.as_tensor(w, **f32)[None], cfg, d.prio,
+                           d.u, generator)
+    res = _ransac(*prep, torch.as_tensor(K, **f32)[None], cfg, d.u2,
+                  generator)
+    return tuple(x[0] for x in res)
+
+
+def decode_to_pose(mask, code, lut_points, lut_valid, bbox, K,
+                   bbox_size: int = 128, base: int = 2,
+                   cfg: PnPConfig = PnPConfig(),
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[RansacDraws] = None, device=None):
+    """One instance's CNN outputs -> pose: mask [H, W], code [H, W, n],
+    bbox [4] (final bbox), K [3, 3] -> (R [3, 3], t [3], success,
+    n_inliers). `decode_to_pose_batch` on a batch of one; `draws` holds
+    this instance's uniforms as in `ransac_pnp`."""
+    out = decode_to_pose_batch(
+        torch.as_tensor(mask)[None], torch.as_tensor(code)[None],
+        lut_points, lut_valid, torch.as_tensor(bbox)[None],
+        torch.as_tensor(K)[None], bbox_size=bbox_size, base=base, cfg=cfg,
+        generator=generator, draws=_one(draws), device=device)
+    return tuple(x[0] for x in out)
+
+
 def decode_to_pose_batch(masks, codes, lut_points, lut_valid, bboxes, Ks,
                          bbox_size: int = 128, base: int = 2,
                          cfg: PnPConfig = PnPConfig(),
@@ -569,12 +743,12 @@ def decode_to_pose_batch(masks, codes, lut_points, lut_valid, bboxes, Ks,
     bboxes [B,4] (final bbox), Ks [B,3,3] -> (R [B,3,3], t [B,3],
     success [B], n_inliers [B]).
 
-    The hypothesis stage — B·n_hypotheses minimal-set EPnP solves — is
-    one launch of the CUDA kernel on CUDA tensors (its plain version on
-    CPU tensors). Draws come from `draws` when given, else `generator`
-    (a generator on the run's device).
+    The hypothesis stage (`_solve_hypotheses`) is, with the default
+    solver, one launch of the CUDA kernel over the B·n_hypotheses
+    minimal sets on CUDA tensors (its plain version on CPU tensors), and
+    a second with escalation. Draws come from `draws` when given, else
+    `generator` (a generator on the run's device).
     """
-    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
     from zebrapose_tpu_torch.utils.device import resolve_device
 
     _check_cfg(cfg)
@@ -590,35 +764,6 @@ def decode_to_pose_batch(masks, codes, lut_points, lut_valid, bboxes, Ks,
 
     pts3d, orig, fg = _correspondences(masks, codes, lut_points, lut_valid,
                                        bboxes, bbox_size, base)
-    sub3d, sub2d, sub_w, samp3d, samp2d, n_fg = _ransac_prepare(
-        pts3d, orig, fg, cfg, draws.prio, draws.u, generator)
-
-    def hypotheses(s3, s2):
-        B, H = s3.shape[:2]
-        Rs, ts = minimal_epnp_hypotheses(
-            s3.reshape(B * H, 6, 3).contiguous(),
-            s2.reshape(B * H, 6, 2).contiguous(),
-            Ks.repeat_interleave(H, dim=0).contiguous(), cfg.gn_iters)
-        return Rs.reshape(B, H, 3, 3), ts.reshape(B, H, 3)
-
-    Rs, ts = hypotheses(samp3d, samp2d)
-    res = _ransac_finish(sub3d, sub2d, sub_w, Rs, ts, Ks, n_fg, cfg)
-    if cfg.escalate_hypotheses <= 0:
-        return res
-    R1, t1, ok1, n_in1 = res
-    needs = _escalation_needed(ok1, n_in1, n_fg, cfg)
-    # JAX gates stage 2 for the whole batch with one lax.cond; here the
-    # same batch-level gate costs one host sync (needs.any().item()).
-    if not bool(needs.any().item()):
-        return res
-    s3, s2 = _draw_minimal_samples(sub3d, sub2d, sub_w, cfg,
-                                   cfg.escalate_hypotheses, draws.u2,
-                                   generator)
-    Rs2, ts2 = hypotheses(s3, s2)
-    R2, t2, ok2, n_in2 = _ransac_finish(sub3d, sub2d, sub_w, Rs2, ts2, Ks,
-                                        n_fg, cfg)
-    better = needs & (n_in2 > n_in1)
-    return (torch.where(better[:, None, None], R2, R1),
-            torch.where(better[:, None], t2, t1),
-            torch.where(better, ok2, ok1),
-            torch.where(better, n_in2, n_in1))
+    prep = _ransac_prepare(pts3d, orig, fg, cfg, draws.prio, draws.u,
+                           generator)
+    return _ransac(*prep, Ks, cfg, draws.u2, generator)

@@ -11,8 +11,8 @@ on synthetic data.
 
 Not ported yet (ROADMAP.md): data parallelism across cards (torch DDP;
 `parallel/mesh.py` holds the one-process arithmetic), the
-device-resident input modes, QAT, the fleet trainer and
-`train_step_cost`.
+device-resident input modes, QAT and `train_step_cost`. The fleet
+trainer (K objects in one program) is `train/fleet.py`.
 """
 
 from __future__ import annotations
