@@ -1,5 +1,5 @@
 """Drive the PyTorch port's inference, training, BOP, data-preparation,
-refinement, model-family and fleet paths on one card.
+refinement, model-family, fleet and serving paths on one card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline OLD.cu --baseline-intrinsics fxfycxcy
@@ -101,6 +101,25 @@ check exits non-zero. Phases:
                  `test`'s model, the kernel in validation), ms a fleet
                  step from memory in turns with a v2 step (v2, fleet,
                  fleet, v2), kernels a step, busy share, peak memory
+ 13. serving     the serving artifacts (torch.export of the eval program,
+                 weights and LUT in it, the EPnP kernel as the custom op
+                 zebrapose::epnp_minimal_hypotheses) over phase 12's tree,
+                 whose frames are phase 7's: `export-serving` of the ape
+                 at b32 --f32, b32 bf16, --batch 0 and --roi_slice, and
+                 `export-serving-fleet` of ape + can at b32 --f32, five
+                 processes side by side; each blob served in a fresh
+                 process that imports no model or checkpoint code
+                 (`serve-exported`, `--vivo`, `serve-exported-fleet`
+                 plain and --vivo; the kernel's launches counted): the
+                 --f32 blob against `test` (verdicts on every frame,
+                 the kernel gate's p99s, CSVs byte-equal or not), the
+                 bf16 blob's recall against JAX's, the --batch 0 blob at
+                 32 and 16 rows and the roi_slice blob against the fixed
+                 full-frame one, --vivo against `vivo` and its AR
+                 (`score-bop`), the fleet blob against `test-fleet` and
+                 `vivo-fleet` object by object and its AR; blob bytes,
+                 export and load seconds, crops/s of the loaded blob
+                 against the live make_eval_step at b32 and b256
 
 `--write-tree DIR` writes phase 7's tree with phase 8's training split,
 phase 9's inputs and phase 12's tree `DIR/fleet` (and their configs) on
@@ -2626,6 +2645,539 @@ def fleet_phase(dev, card, tmp):
     return rec
 
 
+# the serving phase: a command in a fresh interpreter that imports the
+# port's CLI and nothing of the model, runs `cli.main(argv)` with the
+# kernel's launch count set to 0 (and cuDNN's TF32 convolutions off when
+# the spec says "tf32": false), and prints, as its last line, the
+# count, the seconds of the call and of the whole process, and which
+# modules of the model, checkpoints, training or JAX it imported
+_JOB = r"""
+import json, sys, time
+t0 = time.perf_counter()
+spec = json.loads(sys.argv[1])
+sys.path.insert(0, spec["here"])
+import torch
+torch.backends.cudnn.allow_tf32 = spec.get("tf32", True)
+from zebrapose_tpu_torch import cli
+from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+minimal_epnp_hypotheses.launches = 0
+t1 = time.perf_counter()
+rc = cli.main(spec["argv"])
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+port = ("zebrapose_tpu_torch.models", "zebrapose_tpu_torch.train",
+        "zebrapose_tpu_torch.utils.compact_ckpt")
+print(json.dumps({"rc": rc, "launches": minimal_epnp_hypotheses.launches,
+                  "call_s": t2 - t1, "process_s": t2 - t0,
+                  "peak_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+                  "banned": sorted(m for m in sys.modules
+                                   if m.startswith(port) or m.split(".")[0]
+                                   in ("jax", "flax", "zebrapose_tpu"))}))
+"""
+
+# the symbolic-batch blob against the fixed one on the same rows and
+# draws: every b32 batch of the ape's test walk through the fixed b32
+# blob, through the symbolic one at 32 rows, and at two halves of 16
+# with the matching halves of the draws, with cuDNN's TF32 convolutions
+# on (PyTorch's default) and off; prints (last line) each program's
+# poses and verdicts as lists, its launches and load seconds
+_POLY_JOB = r"""
+import json, sys, time
+spec = json.loads(sys.argv[1])
+sys.path.insert(0, spec["here"])
+import numpy as np, torch
+from zebrapose_tpu_torch.config import ZebraConfig
+from zebrapose_tpu_torch.eval.evaluate import batch_generator, _pad_to
+from zebrapose_tpu_torch.eval.export_serving import load_serving
+from zebrapose_tpu_torch.eval.runner import prepare_object_eval
+from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+load = {}
+progs = {}
+for name in ("fixed", "poly"):
+    t0 = time.perf_counter()
+    progs[name] = load_serving(spec[name])
+    load[name] = time.perf_counter() - t0
+ds = prepare_object_eval(ZebraConfig.from_file(spec["cfg"]),
+                         spec["obj"]).dataset
+n = len(ds)
+out = {}
+minimal_epnp_hypotheses.launches = 0
+for start in range(0, n, 32):
+    m = min(32, n - start)
+    raw = _pad_to(ds.collate(list(range(start, start + m))), 32)
+    dev = progs["fixed"].device
+    d = progs["fixed"].draws(batch_generator(0, start, dev), 32)
+    args = progs["fixed"].frame_args(raw, raw["final_bbox"], raw["K"])
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        tag = "" if tf32 else "_fp32"
+        runs = {"fixed" + tag: progs["fixed"](*args, d.prio, d.u)}
+        if tf32:
+            runs["poly32"] = progs["poly"](*args, d.prio, d.u)
+        halves = [progs["poly"](*[a[s] for a in args], d.prio[s], d.u[s])
+                  for s in (slice(0, 16), slice(16, 32))]
+        runs["poly16" + tag] = [torch.cat(x) for x in zip(*halves)]
+        for k, o in runs.items():
+            out.setdefault(k, []).append([x[:m].cpu().numpy()
+                                          for x in o[:3]])
+torch.backends.cudnn.allow_tf32 = True
+torch.cuda.synchronize()
+res = {k: [np.concatenate(p).tolist() for p in zip(*v)]
+       for k, v in out.items()}
+print(json.dumps({"launches": minimal_epnp_hypotheses.launches,
+                  "load_s": load, "batches": -(-n // 32), "poses": res}))
+"""
+
+
+def _start(specs):
+    """Start `_JOB` / `_POLY_JOB` processes side by side, one a spec
+    (name -> (code, spec)); returns name -> process."""
+    return {name: subprocess.Popen(
+        [sys.executable, "-c", code, json.dumps(spec)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE)
+        for name, (code, spec) in specs.items()}
+
+
+def _finish(procs, timeout=600):
+    """Wait for `_start`'s processes: name -> (last JSON line, the lines
+    before it). A failed process fails the phase; every process is waited
+    for or killed."""
+    try:
+        out = {}
+        for name, p in procs.items():
+            so, se = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                log(f"[serving] {name} failed (rc {p.returncode}):\n"
+                    f"{so[-3000:]}\n{se[-5000:]}")
+            check(p.returncode == 0, f"serving job {name} failed")
+            lines = so.strip().splitlines()
+            out[name] = (json.loads(lines[-1]), lines[:-1])
+        return out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _csv_rows(path, key="im"):
+    """{key: (R, t, score)} of a BOP CSV; key "im" for a one-row-a-frame
+    walk, "im_score" for a vivo walk (a frame's instances differ in
+    their detection scores)."""
+    rows = {}
+    for ln in open(path).read().splitlines()[1:]:
+        f = ln.split(",")
+        k = int(f[1]) if key == "im" else (int(f[1]), float(f[3]))
+        check(k not in rows, f"{path}: two rows for {k}")
+        rows[k] = (np.array(f[4].split(), float).reshape(3, 3),
+                   np.array(f[5].split(), float), float(f[3]))
+    return rows
+
+
+def _rot_deg(Ra, Rb):
+    """Angle between rotations from their difference, 2 asin(|Ra - Rb|_F
+    / sqrt 8): exact for rotations, and not floored by the arccos of a
+    trace within float32 rounding of 3 as `rot_deg` is (~0.03 deg for
+    equal matrices read back from a CSV)."""
+    d = np.linalg.norm(Ra - Rb, axis=(1, 2)) / np.sqrt(8.0)
+    return np.degrees(2 * np.arcsin(np.clip(d, 0, 1)))
+
+
+def _hold(got, want, what, vivo=False, gate=True):
+    """Gate a served CSV's rows against the live command's (with `gate`;
+    else only print): the same verdicts on every frame (a `test` row
+    solved when its t is not 0, a vivo instance solved when it has a
+    row), and where both solve, rotation p99 < 0.1 deg and translation
+    p99 < 0.5 mm (the kernel gate's figures,
+    scripts/pallas_parity_gate.py:81-82). Returns the record."""
+    if vivo:
+        ok_g = {k: True for k in got}
+        ok_w = {k: True for k in want}
+        keys = sorted(set(got) | set(want))
+    else:
+        keys = sorted(want)
+        check(sorted(got) == keys, f"{what}: the served rows are not "
+              "the live command's frames")
+        ok_g = {k: bool(np.any(got[k][1] != 0)) for k in keys}
+        ok_w = {k: bool(np.any(want[k][1] != 0)) for k in keys}
+    same = sum(ok_g.get(k, False) == ok_w.get(k, False) for k in keys)
+    both = [k for k in keys if ok_g.get(k) and ok_w.get(k)]
+    ang = _rot_deg(np.array([got[k][0] for k in both]),
+                   np.array([want[k][0] for k in both])) if both else \
+        np.zeros(1)
+    dt = np.array([np.linalg.norm(got[k][1] - want[k][1]) for k in both]) \
+        if both else np.zeros(1)
+    rec = {"rows": len(keys), "verdicts_equal": same, "both_solved":
+           len(both), "rot_deg_p99": float(np.percentile(ang, 99)),
+           "t_mm_p99": float(np.percentile(dt, 99)),
+           "rot_deg_max": float(ang.max()), "t_mm_max": float(dt.max())}
+    log(f"[serving] {what}: verdicts equal on {same} of {len(keys)}, both "
+        f"solved {len(both)}; rot deg p99 {rec['rot_deg_p99']:.2e} (max "
+        f"{rec['rot_deg_max']:.2e}), t mm p99 {rec['t_mm_p99']:.2e} (max "
+        f"{rec['t_mm_max']:.2e})")
+    if gate:
+        check(same == len(keys), f"{what}: verdicts differ")
+        check(rec["rot_deg_p99"] < 0.1 and rec["t_mm_p99"] < 0.5,
+              f"{what}: poses beyond the kernel gate's p99")
+    return rec
+
+
+def _serve_all(dev, card, sdir, cfg_test, cfg_vivo, names, blob, running,
+               started, t0):
+    """Phase 13's processes: the exports' (`running`) results, then the
+    serves in two waves (the single-object blobs, then the fleet blob
+    beside this process's TF32-off `test-fleet` and `vivo-fleet`). Each
+    started group is appended to `started` (the caller stops them).
+    Returns the phase's record with the jobs' results under "done"."""
+    import contextlib
+    import io
+
+    import torch
+
+    from zebrapose_tpu_torch import cli
+
+    done = _finish({k: p for k, p in running.items() if k != "fleet"})
+    t_single = time.perf_counter() - t0
+    rec = {"export": {}, "serve": {}, "card": card}
+    serve = ["serve-exported", "--cfg", cfg_test, "--obj_name", "ape",
+             "--device", str(dev)]
+    fleet = ["serve-exported-fleet", "--obj_names", *names, "--blob",
+             blob["fleet"], "--batch_size", "32", "--device", str(dev)]
+    runs = {
+        "f32": serve + ["--blob", blob["f32"]],
+        "bf16": serve + ["--blob", blob["bf16"]],
+        "roi": serve + ["--blob", blob["roi"]],
+        "vivo": ["serve-exported", "--cfg", cfg_vivo, "--obj_name", "ape",
+                 "--blob", blob["f32"], "--vivo", "--device", str(dev)],
+        "fleet": fleet + ["--cfg", cfg_test],
+        "fleet_vivo": fleet + ["--cfg", cfg_vivo, "--vivo"]}
+    runs["fleet_fp32"], runs["fleet_vivo_fp32"] = runs["fleet"], \
+        runs["fleet_vivo"]
+    specs = {k: (_JOB, {"here": HERE, "tf32": not k.endswith("_fp32"),
+                        "argv": v + ["--output_dir", os.path.join(sdir, k)]})
+             for k, v in runs.items()}
+    specs["poly"] = (_POLY_JOB, {"here": HERE, "fixed": blob["f32"],
+                                 "poly": blob["poly"], "cfg": cfg_test,
+                                 "obj": "ape"})
+
+    def live_fp32():
+        """`test-fleet` and `vivo-fleet` as phase 12 ran them, with cuDNN's
+        TF32 convolutions off, while the serving processes run."""
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            _test_cmd(dev, cfg_test, os.path.join(sdir, "live_fleet_fp32"),
+                      names, [CKPT, CKPT])
+            with contextlib.redirect_stdout(io.StringIO()):
+                check(cli.main(["vivo-fleet", "--cfg", cfg_vivo,
+                                "--obj_names", *names, "--ckpt_files", CKPT,
+                                CKPT, "--batch_size", str(VIVO_BATCH),
+                                "--output_dir",
+                                os.path.join(sdir, "live_vivo_fp32"),
+                                "--device", str(dev)]) == 0,
+                      "vivo-fleet (TF32 off) failed")
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+
+    fleet_jobs = [k for k in specs if k.startswith("fleet")]
+    wave = _start({k: v for k, v in specs.items() if k not in fleet_jobs})
+    started.append(wave)
+    done.update(_finish({"fleet": running["fleet"]}))
+    export_wall = time.perf_counter() - t0
+    for k, (job, lines) in done.items():
+        res = json.loads(lines[-1])
+        rec["export"][k] = {"bytes": res["bytes"], "export_s": res["export_s"],
+                            "process_s": job["process_s"],
+                            "image_hw": res["image_hw"]}
+        log(f"[serving] export {k}: {res['bytes'] / 2 ** 20:.1f} MiB, "
+            f"torch.export + save {res['export_s']:.1f} s, the command "
+            f"{job['call_s']:.1f} s, its process {job['process_s']:.1f} s "
+            f"(5 side by side: the single-object ones {t_single:.1f} s, "
+            f"all {export_wall:.1f} s wall) on {card}")
+    check(rec["export"]["roi"]["image_hw"] != [480, 640],
+          "the roi_slice blob has full frames")
+    t_serve = time.perf_counter()
+    done = _finish(wave)
+    torch.cuda.empty_cache()
+    procs = _start({k: specs[k] for k in fleet_jobs})
+    started.append(procs)
+    live_fp32()
+    done.update(_finish(procs))
+    rec["serve_wall_s"] = time.perf_counter() - t_serve
+    rec["done"] = done
+    return rec
+
+
+def serving_phase(dev, card, tmp):
+    """Phase 13 (see the module docstring), after phases 7-12 under
+    `tmp`: their trees and the live commands' CSVs; returns its record."""
+    import contextlib
+    import io
+
+    import torch
+
+    from zebrapose_tpu_torch import cli
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.eval.evaluate import (
+        batch_generator,
+        make_eval_step,
+        pose_errors,
+        summarize,
+    )
+    from zebrapose_tpu_torch.eval.export_serving import load_serving
+    from zebrapose_tpu_torch.eval.runner import (
+        load_model,
+        prepare_object_eval,
+    )
+    from zebrapose_tpu_torch.ops.pnp import PnPConfig
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+
+    t_phase = time.perf_counter()
+    froot = os.path.join(tmp, "fleet")
+    cfg_test = os.path.join(froot, "lmo_fleet.txt")
+    cfg_vivo = os.path.join(froot, "lmo_fleet_vivo.txt")
+    sdir = os.path.join(tmp, "serving")
+    os.makedirs(sdir)
+    names = ["ape", FLEET_OBJ]
+    n_ape, n_can = TREE_FRAMES, FLEET_FRAMES
+    blob = {k: os.path.join(sdir, f"{k}.serving")
+            for k in ("f32", "bf16", "poly", "roi", "fleet")}
+    one = ["export-serving", "--cfg", cfg_test, "--obj_name", "ape",
+           "--ckpt_file", CKPT, "--device", str(dev)]
+    exports = {
+        "f32": one + ["--batch", "32", "--f32", "--out", blob["f32"]],
+        "bf16": one + ["--batch", "32", "--out", blob["bf16"]],
+        "poly": one + ["--batch", "0", "--f32", "--out", blob["poly"]],
+        "roi": one + ["--batch", "32", "--f32", "--roi_slice", "--out",
+                      blob["roi"]],
+        "fleet": ["export-serving-fleet", "--cfg", cfg_test, "--obj_names",
+                  *names, "--ckpt_files", CKPT, CKPT, "--batch", "32",
+                  "--f32", "--out", blob["fleet"], "--device", str(dev)]}
+    # the exports side by side; the single-object blobs' serves start when
+    # their exports end (the fleet's export takes longest), the fleet
+    # blob's after it, beside this process's TF32-off commands; two waves,
+    # so that the processes' device memory fits the card beside this one's
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    started = []          # every process this phase starts, for the finally
+    running = _start({k: (_JOB, {"here": HERE, "argv": v})
+                      for k, v in exports.items()})
+    started.append(running)
+    try:
+        rec = _serve_all(dev, card, sdir, cfg_test, cfg_vivo, names, blob,
+                         running, started, t0)
+    finally:
+        for procs in started:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    done = rec.pop("done")
+    batches = -(-n_ape // 32)
+    want_launches = {"f32": batches, "bf16": batches, "roi": batches,
+                     "vivo": -(-JAX_CPU_FLEET["vivo"]["instances"]["ape"]
+                               // 32),
+                     "fleet": 2 * -(-max(n_ape, n_can) // 32),
+                     "fleet_vivo": 2 * -(-max(JAX_CPU_FLEET["vivo"][
+                         "instances"].values()) // 32),
+                     "fleet_fp32": 2 * -(-max(n_ape, n_can) // 32),
+                     "fleet_vivo_fp32": 2 * -(-max(JAX_CPU_FLEET["vivo"][
+                         "instances"].values()) // 32),
+                     # TF32 on: fixed, 32 rows, 2 x 16; off: fixed, 2 x 16
+                     "poly": 7 * batches}
+    for k, (job, lines) in done.items():
+        res = json.loads(lines[-1]) if k != "poly" else job
+        log(f"[serving] serve {k}: kernel launches {job['launches']} "
+            f"(want {want_launches[k]}: one a call of a single blob, K of "
+            f"a fleet blob)"
+            + (f", load {res['load_s']:.1f} s, the command "
+               f"{job['call_s']:.1f} s, its process {job['process_s']:.1f}"
+               f" s, {job['peak_gib']:.1f} GiB of device memory at most; "
+               f"imported of the model, checkpoints, training or JAX: "
+               f"{job['banned'] or 'nothing'}" if k != "poly" else
+               f", loads {job['load_s']}") + f" on {card}")
+        check(job["launches"] == want_launches[k],
+              f"serve {k}: {job['launches']} kernel launches")
+        if k != "poly":
+            check(job["rc"] == 0 and not job["banned"],
+                  f"serve {k}: rc {job['rc']}, imported {job['banned']}")
+        rec["serve"][k] = {"launches": job["launches"],
+                           "process_s": job.get("process_s"),
+                           "load_s": res.get("load_s", job.get("load_s")),
+                           "result": res if k != "poly" else None}
+
+    # the --f32 b32 blob against `test` (phase 12's single test of the ape
+    # on the fleet tree: b32, seed 0, the committed checkpoint)
+    def csv(run, name):
+        return os.path.join(run, "pose_result_bop", f"lmo_{name}.csv")
+
+    live_test = csv(_run_dir(os.path.join(tmp, "f_single_ape_0")), "ape")
+    served = csv(os.path.join(sdir, "f32"), "ape")
+    rec["f32_vs_test"] = _hold(_csv_rows(served), _csv_rows(live_test),
+                               "--f32 b32 blob vs test")
+    rec["f32_vs_test"]["byte_equal"] = \
+        open(served, "rb").read() == open(live_test, "rb").read()
+    log(f"[serving] --f32 b32 blob vs test: CSVs byte-equal "
+        f"{rec['f32_vs_test']['byte_equal']}")
+
+    # the bf16 blob's recall, scored by the port's metrics
+    oe = prepare_object_eval(ZebraConfig.from_file(cfg_test), "ape")
+    rows = _csv_rows(csv(os.path.join(sdir, "bf16"), "ape"))
+    Rs = np.array([rows[i][0] for i in range(n_ape)], np.float32)
+    ts = np.array([rows[i][1] for i in range(n_ape)], np.float32)
+    ok = np.any(ts != 0, axis=1)
+    recall = summarize(pose_errors(oe.dataset, Rs, ts, ok, oe.vertices,
+                                   oe.symmetric, device=dev),
+                       oe.diameter)["ADD_recall_0.1d"]
+    want = JAX_CPU_RECALL["plain"] - RECALL_SLACK
+    log(f"[serving] bf16 b32 blob: ADD recall@0.1d {recall:.4f} (JAX on a "
+        f"CPU {JAX_CPU_RECALL['plain']:.4f}, gate >= {want:.4f}), solved "
+        f"{int(ok.sum())} of {n_ape}")
+    check(recall >= want, "bf16 blob: recall below the JAX package's less "
+          f"{RECALL_SLACK}")
+    rec["bf16_recall"] = recall
+
+    # the symbolic-batch blob at 32 and at 16 rows against the fixed one
+    poses = done["poly"][0]["poses"]
+
+    def rows_of(k):
+        R, t, s = (np.array(x) for x in poses[k])
+        return {i: (R[i], t[i] * s[i]) for i in range(len(s))}
+    # at 16 rows cuDNN may pick other convolution algorithms than at 32,
+    # and under TF32 (10-bit mantissas) two algorithms' logits can differ
+    # enough to flip code bits: the halves are gated with TF32 off
+    # (float32 convolutions), and the TF32 figures are printed
+    rec["poly32"] = _hold(rows_of("poly32"), rows_of("fixed"),
+                          "--batch 0 blob at 32 rows vs the fixed blob")
+    rec["poly16_tf32"] = _hold(rows_of("poly16"), rows_of("fixed"),
+                               "--batch 0 blob at 16 rows vs the fixed "
+                               "blob, cuDNN TF32 on (not gated)",
+                               gate=False)
+    rec["poly16"] = _hold(rows_of("poly16_fp32"), rows_of("fixed_fp32"),
+                          "--batch 0 blob at 16 rows vs the fixed blob, "
+                          "cuDNN TF32 off")
+    # the roi_slice blob against the full-frame one
+    rec["roi"] = _hold(_csv_rows(csv(os.path.join(sdir, "roi"), "ape")),
+                       _csv_rows(served), "roi_slice blob vs full-frame blob")
+
+    # serve-exported --vivo against vivo (phase 9), and its AR
+    live_vivo = csv(_run_dir(os.path.join(tmp, "out_vivo")), "ape")
+    vivo_csv = csv(os.path.join(sdir, "vivo"), "ape")
+    rec["vivo"] = _hold(_csv_rows(vivo_csv, "im_score"),
+                        _csv_rows(live_vivo, "im_score"),
+                        "serve-exported --vivo vs vivo", vivo=True)
+
+    def score(path, root):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["score-bop", "--csv", path, "--bop_path", root,
+                           "--dataset", "lmo", "--device", str(dev)])
+        check(rc == 0, f"score-bop returned {rc}")
+        return _last_json(buf.getvalue())
+
+    ar = score(vivo_csv, os.path.join(tmp, "bop"))["AR"]
+    want = JAX_CPU_BOP["AR"] - AR_SLACK
+    log(f"[serving] serve-exported --vivo: AR {ar:.4f} (JAX on a CPU "
+        f"{JAX_CPU_BOP['AR']:.4f}, gate >= {want:.4f})")
+    check(ar >= want, f"serve-exported --vivo AR below JAX's less {AR_SLACK}")
+    rec["vivo"]["AR"] = ar
+
+    # the fleet blob against test-fleet and vivo-fleet, object by object.
+    # The blob runs the members' forwards in turn, the live step one
+    # vmapped forward (grouped convolutions): under TF32 the two
+    # algorithms' logits can differ enough to flip code bits, so the gate
+    # holds the blob to the commands with TF32 off on both sides, and the
+    # TF32 figures (phase 12's commands) are printed
+    live = {(True, False): _run_dir(os.path.join(tmp, "f_fleet_plain")),
+            (True, True): _run_dir(os.path.join(tmp, "f_vivo")),
+            (False, False): _run_dir(os.path.join(sdir, "live_fleet_fp32")),
+            (False, True): _run_dir(os.path.join(sdir, "live_vivo_fp32"))}
+    for tf32 in (True, False):
+        for vivo in (False, True):
+            key = ("fleet_vivo" if vivo else "fleet") + ("" if tf32
+                                                         else "_fp32")
+            rec[key] = {}
+            for name in names:
+                rec[key][name] = _hold(
+                    _csv_rows(csv(os.path.join(sdir, key), name),
+                              "im_score" if vivo else "im"),
+                    _csv_rows(csv(live[tf32, vivo], name),
+                              "im_score" if vivo else "im"),
+                    f"fleet blob{' --vivo' if vivo else ''} vs "
+                    f"{'vivo-fleet' if vivo else 'test-fleet'}, {name}, "
+                    f"cuDNN TF32 {'on (not gated)' if tf32 else 'off'}",
+                    vivo=vivo, gate=not tf32)
+    ar = score(json.loads(done["fleet_vivo"][1][-1])["merged_csv"],
+               froot)["AR"]
+    want = JAX_CPU_FLEET["vivo"]["AR"] - AR_SLACK
+    log(f"[serving] serve-exported-fleet --vivo: AR {ar:.4f} (JAX on a CPU "
+        f"vivo-fleet {JAX_CPU_FLEET['vivo']['AR']:.4f}, gate >= {want:.4f})")
+    check(ar >= want, "fleet blob --vivo AR below JAX's vivo-fleet less "
+          f"{AR_SLACK}")
+    rec["fleet_vivo"]["AR"] = ar
+
+    # crops/s of the loaded symbolic blob against the live make_eval_step
+    # (f32, the same checkpoint and LUT) at b32 and b256, same draws
+    cfg = ZebraConfig.from_file(cfg_test)
+    t0 = time.perf_counter()
+    prog = load_serving(blob["poly"], dev)
+    load_s = time.perf_counter() - t0
+    calls = [str(n.target) for n in prog.program.graph.nodes
+             if n.op == "call_function"]
+    rec["graph_nodes"] = {
+        "all": len(prog.program.graph.nodes),
+        **{op: sum(c.startswith(f"zebrapose.{op}") for c in calls)
+           for op in ("epnp_minimal_hypotheses", "cholesky_small",
+                      "cho_solve_small", "polar_rotation")}}
+    log(f"[serving] the symbolic blob's graph: {rec['graph_nodes']['all']} "
+        f"nodes, custom-op calls " + json.dumps(
+            {k: v for k, v in rec["graph_nodes"].items() if k != "all"}))
+    model = load_model(cfg, CKPT, "v2", device=dev)
+    live = make_eval_step(
+        lambda b: model(b["image"]), oe.lut,
+        crop_img=cfg.BoundingBox_CropSize_image,
+        crop_gt=cfg.BoundingBox_CropSize_GT,
+        base=cfg.divide_number_each_itration,
+        n_bits=cfg.number_of_itration, resize_method=cfg.resize_method,
+        loss_type=cfg.BinaryCode_Loss_Type, pnp_cfg=PnPConfig(),
+        preprocess_gt=False, device=dev)
+    raw = oe.dataset.collate(list(range(n_ape)))
+    rec["rates"] = {}
+    minimal_epnp_hypotheses.launches = 0
+    for bsz in (32, 256):
+        feed = {k: np.resize(v, (bsz,) + v.shape[1:])
+                for k, v in raw.items()}
+        d = prog.draws(batch_generator(0, 0, dev), bsz)
+        # both programs take the same tensors on the card (no host copy
+        # inside either timed call)
+        args = prog.frame_args(feed, feed["final_bbox"], feed["K"])
+        live_feed = dict(zip(("rgb", "roi_param", "valid"), args))
+        fns = {"artifact": lambda: prog(*args, d.prio, d.u),
+               "live": lambda: live(live_feed, args[3], args[4], draws=d)}
+        rec["rates"][bsz] = {}
+        for which in ("live", "artifact", "artifact", "live"):
+            ms, lo, hi = time_ms(fns[which], iters=10, warmup=2)
+            rec["rates"][bsz].setdefault(which, []).append(
+                {"median": bsz / ms * 1e3, "min": bsz / hi * 1e3,
+                 "max": bsz / lo * 1e3})
+        r = rec["rates"][bsz]
+        log(f"[serving] b{bsz}: crops/s (CUDA events, median / min / max of "
+            f"10 after 2, turns live, artifact, artifact, live): artifact "
+            + ", ".join(f"{x['median']:.1f} / {x['min']:.1f} / "
+                        f"{x['max']:.1f}" for x in r["artifact"])
+            + "; live make_eval_step "
+            + ", ".join(f"{x['median']:.1f} / {x['min']:.1f} / "
+                        f"{x['max']:.1f}" for x in r["live"])
+            + f"; on {card}")
+    torch.cuda.synchronize()
+    rec["timed_launches"] = minimal_epnp_hypotheses.launches
+    rec["load_s_in_process"] = load_s
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[serving] the symbolic blob loaded in this process in {load_s:.1f}"
+        f" s; phase 13 took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def _cxx_version():
     from zebrapose_tpu_torch.ops._build import _cxx
 
@@ -3291,7 +3843,7 @@ def main(argv=None) -> int:
         "minimal-set EPnP")
 
     # ---- 7. the test runner, 8. the training path, 9. BOP, 10. prep,
-    # 11. refinement and the model families, 12. the fleet --------------
+    # 11. refinement and the model families, 12. the fleet, 13. serving --
     with tempfile.TemporaryDirectory() as tmp:
         runner = runner_phase(dev, card, tmp)
         train = train_phase(dev, card, tmp)
@@ -3299,6 +3851,7 @@ def main(argv=None) -> int:
         prep = prep_phase(dev, card, tmp, runner["png_decode_ms"])
         families = families_phase(dev, card, tmp)
         fleet = fleet_phase(dev, card, tmp)
+        serving = serving_phase(dev, card, tmp)
 
     main_n = 256 * cfg.n_hypotheses                  # the b256 stage
     rec = {"name": "minimal_epnp_hypotheses", "route": "cuda",
@@ -3325,9 +3878,11 @@ def main(argv=None) -> int:
                   for k, v in families["families"].items()},
                "test_fleet": fleet["test"]["launches"],
                "vivo_fleet": fleet["vivo"]["launches"],
-               "train_fleet": fleet["train"]["launches"]},
+               "train_fleet": fleet["train"]["launches"],
+               **{f"serve_{k}": v["launches"]
+                  for k, v in serving["serve"].items()}},
            "runner": runner, "train": train, "bop": bop, "prep": prep,
-           "families": families, "fleet": fleet,
+           "families": families, "fleet": fleet, "serving": serving,
            "card": card}
     if ab:
         rec["ab"] = {str(n): v for n, v in ab.items()}

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from zebrapose_tpu.data.pipeline import preprocess_batch as j_preprocess
 from zebrapose_tpu.ops import augment as ja
 from zebrapose_tpu_torch.data.pipeline import preprocess_batch

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import chip_smoke
+import torch_threads  # noqa: F401  (torch threads a worker)
 from zebrapose_tpu.eval import bop_score as jbs
 from zebrapose_tpu.native import render_label as j_render
 from zebrapose_tpu.ops import bop_errors as jbe

@@ -13,6 +13,7 @@ import shutil
 
 import pytest
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from zebrapose_tpu_torch.ops import _build
 
 

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from zebrapose_tpu.codec import lut as jlut
 from zebrapose_tpu.codec import surface_code as jsc
 from zebrapose_tpu.data.pipeline import preprocess_batch as j_preprocess

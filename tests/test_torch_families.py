@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 import torch_oracle
 from test_torch_model import flax_variables
 from test_torch_trainer import tree  # noqa: F401

@@ -35,6 +35,7 @@ import pytest
 import torch
 from flax import linen as fnn
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from test_torch_model import flax_variables
 from test_torch_train import _batch, _rel, _t
 from test_torch_trainer import (  # noqa: F401  (fixtures)

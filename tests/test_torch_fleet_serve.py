@@ -53,6 +53,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from test_torch_model import flax_variables
 from test_torch_pnp import jax_ransac_draws
 from test_torch_trainer import _hide_module_stubs  # noqa: F401  (autouse)

@@ -17,6 +17,7 @@ import cv2
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from zebrapose_tpu import native as jnative
 from zebrapose_tpu.data.bop_io import save_ply as j_save_ply
 from zebrapose_tpu.tools import symmetry as jsym

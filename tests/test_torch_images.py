@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from zebrapose_tpu_torch.data import jpeg, png, tiff
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from zebrapose_tpu.models import losses as jl
 from zebrapose_tpu_torch.models import losses as tl
 

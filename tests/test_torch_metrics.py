@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from zebrapose_tpu.ops import metrics as jm
 from zebrapose_tpu_torch.ops import metrics as tm
 

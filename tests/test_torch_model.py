@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from zebrapose_tpu.models.zebra_net import ZebraPoseNet as JNet
 from zebrapose_tpu.models.zebra_net import normalize_image as j_normalize
 from zebrapose_tpu.utils.compact_ckpt import load_compact as j_load_compact

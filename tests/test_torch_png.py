@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from zebrapose_tpu_torch.data import png
 
 FLAGS = (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE, cv2.IMREAD_UNCHANGED)

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from zebrapose_tpu.ops import binarize as jbin
 from zebrapose_tpu.ops import fast_linalg as jfl
 from zebrapose_tpu.ops import pnp as jpnp

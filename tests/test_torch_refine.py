@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
+import torch_threads  # noqa: F401  (torch threads a worker)
 from test_torch_pnp import jax_ransac_draws
 from test_torch_runner import (  # noqa: F401  (bop_tree: a fixture)
     _both,

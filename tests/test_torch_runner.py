@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 import test_torch_slice
 from test_torch_pnp import jax_ransac_draws
 from torch_oracle import ReferenceNet

@@ -37,6 +37,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from test_torch_model import flax_variables
 from test_torch_pnp import jax_ransac_draws
 from zebrapose_tpu.codec.lut import CorrespondenceLUT as JLUT

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import chip_smoke
+import torch_threads  # noqa: F401  (torch threads a worker)
 from test_torch_pnp import _minimal_sets, jax_ransac_draws
 import test_torch_slice
 from test_torch_slice import K, _assert_poses

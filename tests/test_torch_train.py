@@ -33,6 +33,7 @@ import pytest
 import torch
 from flax import linen as fnn
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from test_torch_model import flax_variables
 from zebrapose_tpu.models import layers as jlayers
 from zebrapose_tpu.models.convert_torch import (

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from zebrapose_tpu.data.pipeline import CropDatasetHost as JDataset
 from zebrapose_tpu.data.pipeline import MixedBatchIterator as JMixed
 from zebrapose_tpu.parallel import mesh as jmesh

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch threads a worker)
 from test_torch_pnp import jax_ransac_draws
 from zebrapose_tpu.codec.lut import CorrespondenceLUT as JLUT
 from zebrapose_tpu.eval import vivo as jvivo

@@ -25,6 +25,18 @@
   python -m zebrapose_tpu_torch vivo-fleet --cfg cfg.txt \
       --obj_names ape can --ckpt_files a.pth b.pth [--score_threshold 0.2] \
       [--batch_size N] [--mask_rcnn] [--roi_slice] [--device cuda|cpu]
+  python -m zebrapose_tpu_torch export-serving --cfg cfg.txt --obj_name ape \
+      --ckpt_file <.npz or .pth> --out ape.serving [--batch 64 | 0] \
+      [--image_h 480 --image_w 640] [--f32] [--roi_slice] \
+      [--n_hypotheses 128] [--max_points 4096] [--device cuda|cpu]
+  python -m zebrapose_tpu_torch serve-exported --cfg cfg.txt --obj_name ape \
+      --blob ape.serving [--vivo] [--batch_size N] [--seed 0] \
+      [--device cuda|cpu]
+  python -m zebrapose_tpu_torch export-serving-fleet --cfg cfg.txt \
+      --obj_names ape can --ckpt_files a.pth b.pth --out fleet.serving \
+      [--batch 16] [--f32] [--device cuda|cpu]
+  python -m zebrapose_tpu_torch serve-exported-fleet --cfg cfg.txt \
+      --obj_names ape can --blob fleet.serving [--vivo] [--device cuda|cpu]
 
 The flags are those of `python -m zebrapose_tpu train` / `test` /
 `vivo` / `score-bop` plus `--device` (default cuda; without CUDA a
@@ -47,10 +59,17 @@ accelerator either, so this is not a CPU fallback. `train-fleet`,
 in one program (`train/fleet.py`, `eval/fleet_serve.py`), each member
 writing the single-object command's files under its own name and the
 evaluations one merged submission CSV; `--int8` (A6) and `test-fleet
---debug` (A7) raise NotImplementedError. The other commands of the JAX
-package's CLI (`export-serving`, `serve-exported [--vivo]`,
-`export-serving-fleet`, `serve-exported-fleet`, `export-ckpt`,
-`model-cost`, `visualize`) are not ported yet (ROADMAP.md).
+--debug` (A7) raise NotImplementedError. `export-serving` and
+`export-serving-fleet` write the eval program of one object or of K
+objects, weights and LUT included, as one `torch.export` artifact
+(`eval/export_serving.py`) bound to the device it was traced on;
+`serve-exported [--vivo]` and `serve-exported-fleet [--vivo]` answer a
+split from such an artifact alone and write the CSVs of `test` / `vivo`
+/ `test-fleet` / `vivo-fleet`. Their `--platforms` and `--pallas` are
+refused: a torch.export program runs on the device it was exported on,
+and the EPnP kernel goes with that device. The other commands of the JAX
+package's CLI (`export-ckpt`, `model-cost`, `visualize`) are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -59,6 +78,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 
 def _add_pnp_flags(p):
@@ -285,11 +305,185 @@ def _eval_fleet(args, device) -> int:
     return 0
 
 
+def _add_serving(sub):
+    p = sub.add_parser(
+        "export-serving",
+        help="export the eval program (preprocess + forward + decode + "
+             "EPnP-RANSAC) of one object as one torch.export artifact "
+             "with the weights and the LUT in it")
+    p.add_argument("--cfg", required=True, help="reference-format config")
+    p.add_argument("--obj_name", required=True)
+    p.add_argument("--ckpt_file", required=True,
+                   help="compact .npz or reference-format .pth")
+    p.add_argument("--ignore_bit", type=int, default=0)
+    p_fleet = sub.add_parser(
+        "export-serving-fleet",
+        help="export K per-object models as ONE serving artifact (the "
+             "fleet program: stacked weights + LUTs, one vmapped forward, "
+             "per-object decode)")
+    p_fleet.add_argument("--cfg", required=True)
+    p_fleet.add_argument("--obj_names", required=True, nargs="+")
+    p_fleet.add_argument("--ckpt_files", required=True, nargs="+")
+    for q, batch in ((p, 64), (p_fleet, 16)):
+        q.add_argument("--out", required=True, help="output blob path")
+        q.add_argument("--batch", type=int, default=batch,
+                       help="per-object batch; 0 = symbolic (one blob "
+                            "serves any batch size)")
+        q.add_argument("--image_h", type=int, default=480)
+        q.add_argument("--image_w", type=int, default=640)
+        q.add_argument("--variant", default="v2",
+                       choices=["v1", "v2", "v3"])
+        q.add_argument("--int8", action="store_true",
+                       help="int8 conv compute (not ported yet)")
+        q.add_argument("--n_hypotheses", type=int, default=128,
+                       help="RANSAC hypothesis count baked into the blob")
+        q.add_argument("--max_points", type=int, default=4096,
+                       help="correspondence subset capacity baked in")
+        q.add_argument("--f32", action="store_true",
+                       help="f32 model compute (default bf16, the "
+                            "production serving dtype; `test` evaluates "
+                            "in f32: export --f32 to reproduce its CSV)")
+        q.add_argument("--roi_slice", action="store_true",
+                       help="export for ROI-sliced input buffers: frame "
+                            "dims from the configured test walk's max "
+                            "padded bbox (override --image_h/--image_w)")
+        q.add_argument("--platforms", nargs="+", default=None,
+                       help="refused: a torch.export program runs on the "
+                            "device it was exported on (--device)")
+        q.add_argument("--pallas", default=None,
+                       choices=["auto", "on", "off"],
+                       help="refused: the artifact runs the EPnP kernel "
+                            "of its device")
+        _add_device(q)
+
+    p = sub.add_parser(
+        "serve-exported",
+        help="answer a test split from an export-serving blob alone (no "
+             "checkpoint, no model build) and write the BOP CSV")
+    p.add_argument("--cfg", required=True, help="reference-format config")
+    p.add_argument("--obj_name", required=True)
+    p_fleet = sub.add_parser(
+        "serve-exported-fleet",
+        help="answer K objects' test splits from one fleet serving blob; "
+             "per-object BOP CSVs + one merged submission CSV")
+    p_fleet.add_argument("--cfg", required=True)
+    p_fleet.add_argument("--obj_names", required=True, nargs="+")
+    for q in (p, p_fleet):
+        q.add_argument("--blob", required=True,
+                       help="export-serving artifact path")
+        q.add_argument("--output_dir", default="eval_out")
+        q.add_argument("--seed", type=int, default=0)
+        q.add_argument("--max_samples", type=int, default=None)
+        q.add_argument("--batch_size", type=int, default=16,
+                       help="batch for symbolic-batch blobs (fixed-batch "
+                            "blobs dictate their own)")
+        q.add_argument("--vivo", action="store_true",
+                       help="multi-instance walk (test_vivo semantics: "
+                            "GT-less image walk, all detected instances, "
+                            "score-carrying CSV)")
+        q.add_argument("--score_threshold", type=float, default=0.2,
+                       help="--vivo detection score threshold")
+        _add_device(q)
+
+
+def _export_serving(args, cfg, device) -> int:
+    import torch
+
+    from zebrapose_tpu_torch.codec.lut import load_correspondence_lut
+    from zebrapose_tpu_torch.data.dataset_info import lookup_obj_id
+    from zebrapose_tpu_torch.eval import export_serving as es
+    from zebrapose_tpu_torch.eval.runner import (
+        load_model,
+        prepare_object_eval,
+    )
+    from zebrapose_tpu_torch.ops.pnp import PnPConfig
+
+    for flag in ("platforms", "pallas"):
+        if getattr(args, flag) is not None:
+            raise SystemExit(
+                f"--{flag}: a torch.export program runs on the device it "
+                "was exported on, with that device's EPnP kernel; export "
+                "on the serving device instead (--device)")
+    if args.int8:
+        raise NotImplementedError("int8 serving " + _UNPORTED + " (A6)")
+    fleet = args.command == "export-serving-fleet"
+    names = args.obj_names if fleet else [args.obj_name]
+    luts = [load_correspondence_lut(os.path.join(
+        cfg.bop_path, cfg.dataset_name, "models_GT_color",
+        f"Class_CorresPoint{lookup_obj_id(cfg.dataset_name, n):06d}.txt"))
+        for n in names]
+    kw = dict(crop_img=cfg.BoundingBox_CropSize_image,
+              crop_gt=cfg.BoundingBox_CropSize_GT,
+              base=cfg.divide_number_each_itration,
+              n_bits=cfg.number_of_itration,
+              resize_method=cfg.resize_method,
+              loss_type=cfg.BinaryCode_Loss_Type,
+              pnp_cfg=PnPConfig(n_hypotheses=args.n_hypotheses,
+                                max_points=args.max_points),
+              device=device)
+    if fleet:
+        from zebrapose_tpu_torch.eval.fleet_serve import _fleet_model
+        if len(args.ckpt_files) != len(names):
+            raise SystemExit("need one checkpoint per object")
+        model, variables = _fleet_model(cfg, args.variant, args.ckpt_files,
+                                        device)
+        module = es.build_fleet_serving_fn(model, variables, luts,
+                                           bf16=not args.f32, **kw)
+    else:
+        model = load_model(cfg, args.ckpt_file, args.variant, device=device)
+        if not args.f32:
+            model = model.to(torch.bfloat16)
+        module = es.build_serving_fn(model, luts[0],
+                                     ignore_bits=args.ignore_bit, **kw)
+    image_hw = (args.image_h, args.image_w)
+    if args.roi_slice:
+        naturals = [prepare_object_eval(cfg, n, roi_slice=True)
+                    .dataset.natural_slice_hw() for n in names]
+        image_hw = (max(h for h, _ in naturals),
+                    max(w for _, w in naturals))
+        print(f"roi_slice buffer from the walk: {image_hw}")
+    meta = {"dataset": cfg.dataset_name, "roi_slice": args.roi_slice,
+            "f32": args.f32}
+    meta.update({"obj_names": names} if fleet else {"obj_name": names[0]})
+    t0 = time.perf_counter()
+    blob = es.export_serving(module, args.batch or None, image_hw, meta=meta)
+    export_s = time.perf_counter() - t0
+    with open(args.out, "wb") as f:
+        f.write(blob)
+    print(json.dumps({
+        "out": args.out, "bytes": len(blob), "n_models": len(names),
+        "batch": args.batch or "symbolic", "image_hw": list(image_hw),
+        "roi_slice": args.roi_slice, "device": str(device),
+        "export_s": export_s}))
+    return 0
+
+
+def _serve_exported(args, cfg, device) -> int:
+    from zebrapose_tpu_torch.eval import export_serving as es
+
+    common = dict(seed=args.seed, batch_size=args.batch_size, device=device)
+    vivo = dict(score_threshold=args.score_threshold)
+    test = dict(max_samples=args.max_samples)
+    if args.command == "serve-exported":
+        fn = (es.run_serve_exported_vivo if args.vivo
+              else es.run_serve_exported)
+        res = fn(cfg, args.obj_name, args.blob, args.output_dir,
+                 **common, **(vivo if args.vivo else test))
+    else:
+        fn = (es.run_serve_exported_vivo_fleet if args.vivo
+              else es.run_serve_exported_fleet)
+        res = fn(cfg, args.obj_names, args.blob, args.output_dir,
+                 **common, **(vivo if args.vivo else test))
+    print(json.dumps(res))
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="zebrapose_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_train(sub)
     _add_fleet(sub)
+    _add_serving(sub)
 
     p_test = sub.add_parser("test", help="evaluate one object (test.py)")
     p_test.add_argument("--cfg", required=True, help="reference-format config")
@@ -408,6 +602,12 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.command in ("test-fleet", "vivo-fleet"):
         return _eval_fleet(args, device)
+    if args.command in ("export-serving", "export-serving-fleet"):
+        from zebrapose_tpu_torch.config import ZebraConfig
+        return _export_serving(args, ZebraConfig.from_file(args.cfg), device)
+    if args.command in ("serve-exported", "serve-exported-fleet"):
+        from zebrapose_tpu_torch.config import ZebraConfig
+        return _serve_exported(args, ZebraConfig.from_file(args.cfg), device)
     if args.command == "score-bop":
         from zebrapose_tpu_torch.eval.bop_score import score_csv
         res = score_csv(args.csv, args.bop_path, args.dataset,

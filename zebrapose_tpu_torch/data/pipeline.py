@@ -34,7 +34,6 @@ from zebrapose_tpu_torch.codec.surface_code import (
     class_id_to_code,
     rgb_to_class_id,
 )
-from zebrapose_tpu_torch.models.zebra_net import normalize_image
 from zebrapose_tpu_torch.ops.augment import (
     AugmentDraws,
     augment_batch,
@@ -84,6 +83,9 @@ def preprocess_batch(raw: Dict[str, torch.Tensor], crop_img: int = 256,
     `draws`, or with values drawn from `generator` (a torch.Generator
     on the batch's device).
     """
+    # imported here: a serving process imports this module, not the model
+    from zebrapose_tpu_torch.models.zebra_net import normalize_image
+
     p = raw["roi_param"]
     roi_rgb = _roi(raw["rgb"], p, crop_img, resize_method, "linear")
     if is_train:

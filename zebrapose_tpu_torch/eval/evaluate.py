@@ -21,7 +21,7 @@ import queue as queue_mod
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -92,7 +92,11 @@ def make_eval_step(forward_fn: Callable[[Dict[str, torch.Tensor]],
     binarization. `raw` holds the arrays of `preprocess_batch` (numpy or
     tensors); everything is moved to `device` (CUDA unless "cpu" is
     asked for). RANSAC draws come from `draws` when given, else from
-    `generator` (a torch.Generator on the device).
+    `generator` (a torch.Generator on the device). The step's LUT tensors
+    are `step.lut` (points, valid); `lut_tensors` replaces them for one
+    call (an exported serving module passes its own buffers). With
+    `draws` the step traces under `torch.export` at a fixed or symbolic
+    batch (`eval/export_serving.py`).
     """
     dev = resolve_device(device)
     if ignore_bits:
@@ -103,7 +107,9 @@ def make_eval_step(forward_fn: Callable[[Dict[str, torch.Tensor]],
     @torch.no_grad()
     def step(raw, final_bbox, K,
              generator: Optional[torch.Generator] = None,
-             draws: Optional[RansacDraws] = None):
+             draws: Optional[RansacDraws] = None,
+             lut_tensors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        points, valid = lut_tensors or (lut_points, lut_valid)
         raw = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
         batch = preprocess_batch(
             raw, crop_img=crop_img, crop_gt=crop_gt, base=base,
@@ -121,7 +127,7 @@ def make_eval_step(forward_fn: Callable[[Dict[str, torch.Tensor]],
         # `valid` zeroes dummy / detection-less samples
         poses = decode_to_pose_batch(
             masks * raw["valid"].to(torch.float32)[:, None, None], codes,
-            lut_points, lut_valid, torch.as_tensor(final_bbox, device=dev),
+            points, valid, torch.as_tensor(final_bbox, device=dev),
             torch.as_tensor(K, device=dev, dtype=torch.float32),
             bbox_size=crop_gt, base=base,
             cfg=pnp_cfg, generator=generator, draws=draws, device=dev)
@@ -137,6 +143,7 @@ def make_eval_step(forward_fn: Callable[[Dict[str, torch.Tensor]],
             extra = extra + (codes,)
         return tuple(poses) + extra
 
+    step.lut = (lut_points, lut_valid)
     return step
 
 

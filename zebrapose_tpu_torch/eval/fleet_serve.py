@@ -112,7 +112,8 @@ def make_fleet_eval_step(forward_fn: Callable, lut_points, lut_valid,
                          pnp_cfg: PnPConfig, preprocess_gt: bool = False,
                          mask_from_dataset: bool = False,
                          return_masks: bool = False,
-                         return_codes: bool = False, device=None):
+                         return_codes: bool = False,
+                         vmap_forward: bool = True, device=None):
     """Build step(raw, final_bbox, Ks, variables, generators=None,
     draws=None) -> (R [K,B,3,3], t [K,B,3], success [K,B], n_inliers
     [K,B]) (+ (visible, entire) masks [K,B,h,w] with return_masks,
@@ -125,7 +126,13 @@ def make_fleet_eval_step(forward_fn: Callable, lut_points, lut_valid,
     (RansacDraws) when given, else generators[k].
     mask_from_dataset: the Mask-RCNN variant, each detector's mask in
     place of the mask head (and the dataset's entire mask for the
-    refinement masks), as the single-object step does.
+    refinement masks), as the single-object step does. The stacked LUT
+    tensors are `step.luts` (points, valid); `luts` replaces them for one
+    call (an exported fleet serving module passes its own buffers). With
+    `draws` the step traces under `torch.export`. vmap_forward=False runs
+    the K members' forwards in turn, each on its slice of the stacked
+    weights: a serving artifact does, because the vmapped forward's
+    graph does not serialize in every torch (ROADMAP.md C).
     """
     dev = resolve_device(device)
     lp = torch.as_tensor(np.asarray(lut_points), device=dev)
@@ -135,7 +142,9 @@ def make_fleet_eval_step(forward_fn: Callable, lut_points, lut_valid,
     @torch.no_grad()
     def step(raw, final_bbox, Ks, variables,
              generators: Optional[Sequence[torch.Generator]] = None,
-             draws: Optional[Sequence[RansacDraws]] = None):
+             draws: Optional[Sequence[RansacDraws]] = None,
+             luts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        points, valid_lut = luts or (lp, lv)
         raw = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
         batch = preprocess_batch(
             raw, crop_img=crop_img, crop_gt=crop_gt, base=base,
@@ -143,8 +152,14 @@ def make_fleet_eval_step(forward_fn: Callable, lut_points, lut_valid,
             include_gt=preprocess_gt or mask_from_dataset)
         batch = {k: v.reshape((k_models, -1) + v.shape[1:])
                  for k, v in batch.items()}
-        out = {k: v.float() for k, v in
-               vmap(forward_fn)(batch, variables).items()}
+        if vmap_forward:
+            out = vmap(forward_fn)(batch, variables)
+        else:
+            outs = [forward_fn({k: v[i] for k, v in batch.items()},
+                               {n: v[i] for n, v in variables.items()})
+                    for i in range(k_models)]
+            out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        out = {k: v.float() for k, v in out.items()}
         if mask_from_dataset:
             masks = (batch["mask"] > 0.5).to(torch.float32)
         else:
@@ -156,8 +171,9 @@ def make_fleet_eval_step(forward_fn: Callable, lut_points, lut_valid,
         Kk = torch.as_tensor(Ks, device=dev, dtype=torch.float32).reshape(
             k_models, -1, 3, 3)
         poses = [decode_to_pose_batch(
-            masks[i] * valid[i][:, None, None], codes[i], lp[i], lv[i],
-            bboxes[i], Kk[i], bbox_size=crop_gt, base=base, cfg=pnp_cfg,
+            masks[i] * valid[i][:, None, None], codes[i], points[i],
+            valid_lut[i], bboxes[i], Kk[i], bbox_size=crop_gt, base=base,
+            cfg=pnp_cfg,
             generator=None if generators is None else generators[i],
             draws=None if draws is None else draws[i], device=dev)
             for i in range(k_models)]
@@ -173,6 +189,7 @@ def make_fleet_eval_step(forward_fn: Callable, lut_points, lut_valid,
             result = result + (codes,)
         return result
 
+    step.luts = (lp, lv)
     return step
 
 

@@ -39,7 +39,6 @@ from zebrapose_tpu_torch.eval.evaluate import (
     run_inference,
     summarize,
 )
-from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
 from zebrapose_tpu_torch.ops.pnp import PnPConfig
 from zebrapose_tpu_torch.ops.roi import map_pixels_to_original
 from zebrapose_tpu_torch.utils.device import resolve_device
@@ -79,6 +78,8 @@ def load_model(cfg: ZebraConfig, ckpt_file: str, variant: str = "v2",
                device=None) -> ZebraPoseNet:
     """The config's ZebraPoseNet with the checkpoint's weights (strict),
     in eval mode on `device`, channels-last."""
+    from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
+
     dev = resolve_device(device)
     model = ZebraPoseNet(
         binary_code_length=cfg.number_of_itration,

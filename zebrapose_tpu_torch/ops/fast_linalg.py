@@ -6,6 +6,15 @@ subspace iteration with 4 iterations, 12-step scaled-Newton polar), so
 the batched EPnP built on them (`ops/pnp.py`) is the plain counterpart
 of the CUDA hypothesis kernel step for step. `torch.linalg` is not used:
 its batched eigh/svd would be a different algorithm.
+
+The three unrolled primitives (`cholesky_small`, `cho_solve_small`,
+`polar_rotation`) are `torch.library` ops (`zebrapose::...`; one
+implementation for CPU and CUDA, a Meta one for shapes), as
+`torch.linalg`'s own factorizations are single ops. Traced by
+`torch.export`, each call is one graph node: unrolled, the refits of one
+decode made most of a serving program's graph and most of its export
+and load time (ROADMAP.md C). Eager calls run the same code, so results
+are unchanged. They take no gradients (only the pose solver uses them).
 """
 
 from __future__ import annotations
@@ -13,7 +22,7 @@ from __future__ import annotations
 import torch
 
 
-def cholesky_small(A: torch.Tensor) -> torch.Tensor:
+def _cholesky_small(A: torch.Tensor) -> torch.Tensor:
     """Unrolled lower Cholesky of [..., n, n], pivots floored relative to
     the matrix scale (f32 cancellation can drive a pivot negative)."""
     n = A.shape[-1]
@@ -31,7 +40,7 @@ def cholesky_small(A: torch.Tensor) -> torch.Tensor:
     return L
 
 
-def cho_solve_small(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def _cho_solve_small(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve (L Lᵀ) X = B for B [..., n, m], unrolled."""
     n = L.shape[-1]
     shape = torch.broadcast_shapes(L.shape[:-2], B.shape[:-2]) + B.shape[-2:]
@@ -84,7 +93,7 @@ def smallest_subspace(A: torch.Tensor, k: int = 4,
         Y = _gram_schmidt(cho_solve_small(chol, Y))
     rq = (Y * (A @ Y)).sum(-2)                         # [..., k]
     order = torch.argsort(rq, dim=-1, stable=True)
-    return torch.take_along_dim(Y, order[..., None, :], dim=-1)
+    return torch.gather(Y, -1, order[..., None, :].expand(Y.shape))
 
 
 def _inv3(M: torch.Tensor) -> torch.Tensor:
@@ -121,7 +130,7 @@ def _sign(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), x, torch.sign(x))
 
 
-def polar_rotation(H: torch.Tensor, iters: int = 12) -> torch.Tensor:
+def _polar_rotation(H: torch.Tensor, iters: int = 12) -> torch.Tensor:
     """[..., 3, 3] -> closest proper rotation by scaled Newton polar
     iteration X <- (γX + X⁻ᵀ/γ)/2; for det(H) < 0 the last row is
     flipped first."""
@@ -142,3 +151,27 @@ def polar_rotation(H: torch.Tensor, iters: int = 12) -> torch.Tensor:
 def procrustes_rotation(H: torch.Tensor) -> torch.Tensor:
     """Rotation maximizing trace(Rᵀ H): the polar factor of H."""
     return polar_rotation(H)
+
+
+# the ops (see the module docstring); a Library fragment, as
+# `ops/pnp_kernel.py` defines its op, so that importing this module
+# inspects no other module
+_OPS = torch.library.Library("zebrapose", "FRAGMENT")
+for _name, _impl, _meta, _schema in (
+        ("cholesky_small", _cholesky_small, lambda A: torch.empty_like(A),
+         "(Tensor A) -> Tensor"),
+        ("cho_solve_small", _cho_solve_small,
+         lambda L, B: B.new_empty(torch.broadcast_shapes(
+             L.shape[:-2], B.shape[:-2]) + B.shape[-2:]),
+         "(Tensor L, Tensor B) -> Tensor"),
+        ("polar_rotation", _polar_rotation,
+         lambda H, iters=12: torch.empty_like(H),
+         "(Tensor H, int iters=12) -> Tensor")):
+    _OPS.define(_name + _schema)
+    _OPS.impl(_name, _impl, "CPU")
+    _OPS.impl(_name, _impl, "CUDA")
+    _OPS.impl(_name, _meta, "Meta")
+
+cholesky_small = torch.ops.zebrapose.cholesky_small
+cho_solve_small = torch.ops.zebrapose.cho_solve_small
+polar_rotation = torch.ops.zebrapose.polar_rotation

@@ -27,7 +27,15 @@ Random draws: JAX's threefry stream cannot be reproduced in torch, so
 `_ransac_prepare` / `_draw_minimal_samples` take optional uniforms in
 [0, 1) (`RansacDraws`); without them they draw from the caller's
 `torch.Generator`. Given the same uniforms both stacks pick the same
-subsets and minimal sets.
+subsets and minimal sets. `draw_ransac_uniforms` draws from a generator
+exactly what the two functions would draw from it (prio first, then u):
+an exported serving program takes these uniforms as inputs, since
+`torch.export` cannot take a generator. They are the port's form of the
+`key[2] u32` input of the JAX package's serving signature
+(`eval/export_serving.py`). With draws, the stage-1 decode has no host
+sync and no branch on a tensor's value, so it traces; escalation (one
+`.item()` a batch) stays out of exported programs, as JAX's export sets
+only `n_hypotheses` and `max_points`.
 
 Precision: the pose path is float32 end to end and uses matmuls only
 (no convolutions); `torch.backends.cuda.matmul.allow_tf32` is left at
@@ -429,8 +437,9 @@ def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, w: torch.Tensor,
         w.sum(-1), 1e-8)[..., None]
     errs = torch.where(torch.isnan(errs), torch.inf, errs)
     best = torch.argmin(errs, dim=-1)                          # first min
-    R = torch.take_along_dim(Rs, best[..., None, None, None], dim=-3)
-    t = torch.take_along_dim(ts, best[..., None, None], dim=-2)
+    R = torch.gather(Rs, -3, best[..., None, None, None].expand(
+        best.shape + (1, 3, 3)))
+    t = torch.gather(ts, -2, best[..., None, None].expand(best.shape + (1, 3)))
     return R[..., 0, :, :], t[..., 0, :]
 
 
@@ -445,6 +454,24 @@ def subset_pad_len(P: int, cfg: PnPConfig) -> int:
         return 0
     q_blocks = cfg.max_points - min(64, cfg.max_points // 8)
     return q_blocks * -(-P // q_blocks)
+
+
+def draw_ransac_uniforms(generator: torch.Generator, batch: int, P: int,
+                         cfg: PnPConfig) -> RansacDraws:
+    """The stage-1 uniforms `_ransac_prepare` and `_draw_minimal_samples`
+    draw from `generator` for a batch of `batch` instances with P
+    correspondences each, in their order, shapes and dtype: prio [batch,
+    subset_pad_len(P, cfg)] (drawn only when a subset is built; else a
+    [batch, 0] tensor), then u [batch, n_hypotheses, sample_size]. Passed
+    as `draws`, they give the poses that `generator` itself gives."""
+    dev = generator.device
+    n_pad = subset_pad_len(P, cfg)
+    prio = torch.rand((batch, n_pad), generator=generator, device=dev,
+                      dtype=torch.float32) if n_pad else torch.zeros(
+                          (batch, 0), device=dev)
+    u = torch.rand((batch, cfg.n_hypotheses, cfg.sample_size),
+                   generator=generator, device=dev, dtype=torch.float32)
+    return RansacDraws(prio=prio, u=u)
 
 
 def _ransac_prepare(pts3d: torch.Tensor, pts2d: torch.Tensor,

@@ -20,8 +20,16 @@ shared memory; the source note in `csrc/epnp_minimal.cu` gives the
 layout, the occupancy measured and the numerics changes (reciprocal
 diagonals, `rsqrtf`, `rcbrtf`).
 
-`minimal_epnp_hypotheses` launches the kernel for CUDA tensors and runs
-the plain version for CPU tensors; nothing else selects between them.
+The kernel is bound as the `torch.library` op
+`zebrapose::epnp_minimal_hypotheses` (no argument mutated): its CUDA
+implementation launches the kernel (through ctypes, counting
+`minimal_epnp_hypotheses.launches`), its CPU implementation is the plain
+version, and its Meta implementation gives the output shapes to meta
+and fake tensors, so `torch.export` traces the op as one graph node and an exported serving program launches the kernel when it runs on
+the card (`eval/export_serving.py`). Importing this module registers the
+op; a process that loads an exported program imports it first.
+`minimal_epnp_hypotheses` calls the op: the kernel for CUDA tensors, the
+plain version for CPU tensors; nothing else selects between them.
 """
 
 from __future__ import annotations
@@ -58,18 +66,10 @@ def _lib():
     return fn
 
 
-def minimal_epnp_hypotheses(samp3d: torch.Tensor, samp2d: torch.Tensor,
-                            Ks: torch.Tensor, gn_iters: int = 5):
-    """N independent minimal-set EPnP solves.
-
-    samp3d [N, 6, 3], samp2d [N, 6, 2], Ks [N, 3, 3], float32.
-    Returns (Rs [N, 3, 3], ts [N, 3]).
-    """
-    if samp3d.device.type == "cpu":
-        return minimal_epnp_hypotheses_reference(samp3d, samp2d, Ks,
-                                                 gn_iters)
-    if samp3d.device.type != "cuda":
-        raise ValueError(f"unsupported device {samp3d.device}")
+def _epnp_cuda(samp3d: torch.Tensor, samp2d: torch.Tensor,
+               Ks: torch.Tensor, gn_iters: int):
+    """The op's CUDA implementation: one launch of the kernel over the N
+    solves."""
     n = samp3d.shape[0]
     for name, x, shape in (("samp3d", samp3d, (n, S, 3)),
                            ("samp2d", samp2d, (n, S, 2)),
@@ -94,6 +94,39 @@ def minimal_epnp_hypotheses(samp3d: torch.Tensor, samp2d: torch.Tensor,
         raise RuntimeError(f"zp_epnp_minimal launch failed: CUDA error {rc}")
     minimal_epnp_hypotheses.launches += 1
     return R, t
+
+
+def _epnp_meta(samp3d, samp2d, Ks, gn_iters):
+    """The op's shapes, for meta and fake tensors (torch.export)."""
+    n = samp3d.shape[0]
+    return (samp3d.new_empty((n, 3, 3), dtype=torch.float32),
+            samp3d.new_empty((n, 3), dtype=torch.float32))
+
+
+# defined through a Library fragment rather than the custom_op decorator,
+# whose registration inspects its caller's module (inspect.getmodule walks
+# sys.modules) and fails when a module there has no usable __file__
+_OPS = torch.library.Library("zebrapose", "FRAGMENT")
+_OPS.define("epnp_minimal_hypotheses(Tensor samp3d, Tensor samp2d, "
+            "Tensor Ks, int gn_iters) -> (Tensor, Tensor)")
+_OPS.impl("epnp_minimal_hypotheses", _epnp_cuda, "CUDA")
+_OPS.impl("epnp_minimal_hypotheses", minimal_epnp_hypotheses_reference,
+          "CPU")
+_OPS.impl("epnp_minimal_hypotheses", _epnp_meta, "Meta")
+
+
+def minimal_epnp_hypotheses(samp3d: torch.Tensor, samp2d: torch.Tensor,
+                            Ks: torch.Tensor, gn_iters: int = 5):
+    """N independent minimal-set EPnP solves.
+
+    samp3d [N, 6, 3], samp2d [N, 6, 2], Ks [N, 3, 3], float32.
+    Returns (Rs [N, 3, 3], ts [N, 3]): the custom op, i.e. the kernel for
+    CUDA tensors and the plain version for CPU tensors.
+    """
+    if samp3d.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {samp3d.device}")
+    return torch.ops.zebrapose.epnp_minimal_hypotheses(samp3d, samp2d, Ks,
+                                                       int(gn_iters))
 
 
 minimal_epnp_hypotheses.launches = 0
