@@ -597,7 +597,6 @@ def test_fleet_commands_need_cuda_unless_cpu_is_asked(
 
 
 @pytest.mark.parametrize("command,flag,item", [
-    ("test-fleet", "--int8", "A6"), ("vivo-fleet", "--int8", "A6"),
     ("test-fleet", "--debug", "A7")])
 def test_fleet_refusals_name_their_roadmap_items(fleet_tree, tmp_path,
                                                  command, flag, item):
@@ -607,3 +606,24 @@ def test_fleet_refusals_name_their_roadmap_items(fleet_tree, tmp_path,
             "--device", "cpu", flag]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         cli.main(args)
+
+
+@pytest.mark.parametrize("command", ["test-fleet", "vivo-fleet"])
+def test_fleet_commands_run_in_int8(fleet_tree, tmp_path, capsys, command):
+    """`test-fleet --int8` and `vivo-fleet --int8` (refused until the int8
+    convs were ported) run the members' int8 forwards in turn on the
+    CPU and write their CSVs."""
+    out = tmp_path / "out"
+    args = [command, "--cfg", _write_cfg(fleet_tree, tmp_path),
+            "--obj_names", "ape", "cat", "--ckpt_files", fleet_tree["ckpt"],
+            fleet_tree["ckpt"], "--batch_size", "2", "--output_dir",
+            str(out), "--device", "cpu", "--int8"]
+    if command == "test-fleet":
+        args += ["--max_samples", "2"]
+    assert cli.main(args) == 0
+    text = capsys.readouterr().out
+    res = json.loads(text[text.rindex("\n{\n") + 1:])
+    assert sorted(res["per_object"]) == ["ape", "cat"]
+    (run_dir,) = os.listdir(out)
+    for n in ("ape", "cat"):
+        assert (out / run_dir / "pose_result_bop" / f"lmo_{n}.csv").exists()

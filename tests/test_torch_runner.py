@@ -421,12 +421,12 @@ def test_cli_test_needs_cuda_unless_cpu_is_asked(bop_tree, tmp_path,
                   ckpt, "--output_dir", str(tmp_path / "out")])
 
 
-@pytest.mark.parametrize("what", ["int8", "refine", "debug", "orbax", "v3"])
+@pytest.mark.parametrize("what", ["refine", "debug", "orbax", "v3"])
 def test_unported_options_raise(bop_tree, tmp_path, what):
-    """What the port still refuses, each by its ROADMAP item: int8 (A6),
-    debug dumps (A7; with refine = True too: the refiner's debug frames
-    under --debug), orbax directories (A7); and, as the JAX package
-    does, v3 on ResNet50."""
+    """What the port still refuses, each by its ROADMAP item: debug
+    dumps (A7; with refine = True too: the refiner's debug frames under
+    --debug), orbax directories (A7); and, as the JAX package does, v3
+    on ResNet50."""
     bop_path, _ = bop_tree
     cfg = ZebraConfig.from_dict(dict(
         _cfg_dict(bop_path), refine=what == "refine",
@@ -434,13 +434,13 @@ def test_unported_options_raise(bop_tree, tmp_path, what):
     ckpt = str(tmp_path / "ckpt.pth")
     torch.save(ReferenceNet("v2", 16).state_dict(), ckpt)
     kw = {"device": "cpu"}
-    if what in ("int8", "debug", "refine"):
-        kw["int8" if what == "int8" else "debug"] = True
+    if what in ("debug", "refine"):
+        kw["debug"] = True
     if what == "orbax":
         ckpt = str(tmp_path)
     if what == "v3":
         kw["variant"] = "v3"
-    match = {"int8": "ROADMAP.*A6", "refine": "ROADMAP.*A7",
+    match = {"refine": "ROADMAP.*A7",
              "debug": "ROADMAP.*A7", "orbax": "ROADMAP.*A7",
              "v3": "resnet_layers=34"}[what]
     with pytest.raises(NotImplementedError, match=match):

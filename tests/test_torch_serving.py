@@ -426,11 +426,20 @@ def test_cli_export_serving_then_serve(fleet_tree, tmp_path, capsys):  # noqa: F
             cli.main(["export-serving", *common, "--ckpt_file",
                       fleet_tree["ckpt"], "--out", blob, "--device", "cpu",
                       *flag])
-    with pytest.raises(NotImplementedError, match="A6"):
-        cli.main(["export-serving", *common, "--ckpt_file",
-                  fleet_tree["ckpt"], "--out", blob, "--device", "cpu",
-                  "--int8"])
     capsys.readouterr()
+    # --int8 bakes the int8 serving convs in (one int8_conv2d node per
+    # quantized conv; tests/test_torch_int8_serving.py serves such blobs)
+    assert cli.main(["export-serving", *common, "--ckpt_file",
+                     fleet_tree["ckpt"], "--out", blob + ".int8", "--batch",
+                     "2", "--image_h", str(H), "--image_w", str(W), "--f32",
+                     "--int8", "--device", "cpu"]) == 0
+    meta = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert meta["int8"]
+    prog = es.load_serving(blob + ".int8", "cpu")
+    assert prog.meta["int8"] and sum(
+        n.target is torch.ops.zebrapose.int8_conv2d.default
+        for m in prog.program.graph_module.modules()
+        if isinstance(m, torch.fx.GraphModule) for n in m.graph.nodes) == 37
 
     assert cli.main(["export-serving", *common, "--ckpt_file",
                      fleet_tree["ckpt"], "--out", blob, "--batch", "2",

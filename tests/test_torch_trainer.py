@@ -464,7 +464,7 @@ def test_cli_train_needs_cuda_unless_cpu_is_asked(tree, tmp_path,
                                   pretrained_backbone=None)
 
 
-@pytest.mark.parametrize("flags", [["--qat"], ["--multihost"],
+@pytest.mark.parametrize("flags", [["--multihost"],
                                    ["--input_mode", "prefetch"],
                                    ["--input_mode", "device_cache"]])
 def test_unported_train_flags_raise(tree, tmp_path, flags):

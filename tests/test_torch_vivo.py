@@ -241,7 +241,7 @@ def test_evaluate_vivo_matches_jax(vivo_tree, tmp_path, variant):
 
 def test_vivo_command_on_cpu(vivo_tree, tmp_path, capsys):
     """`vivo --device cpu` writes the timestamped run dir, the CSV of
-    the solved instances and the timing line; `--int8` raises."""
+    the solved instances and the timing line; `--int8` runs too."""
     from torch_oracle import ReferenceNet
     from zebrapose_tpu_torch.codec.lut import save_correspondence_lut
 
@@ -279,5 +279,8 @@ def test_vivo_command_on_cpu(vivo_tree, tmp_path, capsys):
     rows = _csv_rows(str(out / run_dir / "pose_result_bop" / "lmo_ape.csv"))
     assert len(rows) == res["solved"]
     assert {r[0][3] for r in rows} <= {"0.85", "0.75", "0.65"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(args + ["--int8"])
+    # --int8: the int8 serving convs (their plain versions on the CPU)
+    assert cli.main(args + ["--int8"]) == 0
+    text = capsys.readouterr().out
+    res8 = json.loads(text[text.rindex("{\n"):])
+    assert res8["instances"] == 3 and 0 <= res8["solved"] <= 3

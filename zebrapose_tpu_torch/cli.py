@@ -2,13 +2,15 @@
 
   python -m zebrapose_tpu_torch train --cfg cfg.txt --obj_name ape \
       [--from_scratch | --pretrained_backbone resnet34.pth] [--bf16] \
-      [--max_steps N] [--log_freq N] [--cache_images] [--device cuda|cpu]
+      [--qat] [--max_steps N] [--log_freq N] [--cache_images] \
+      [--device cuda|cpu]
   python -m zebrapose_tpu_torch test --cfg cfg.txt --obj_name ape \
       --ckpt_file <.npz or .pth> [--batch_size N] [--escalate_h 256] \
-      [--device cuda|cpu]
+      [--int8] [--device cuda|cpu]
   python -m zebrapose_tpu_torch vivo --cfg cfg.txt --obj_name ape \
       --ckpt_file <.npz or .pth> [--score_threshold 0.2] [--batch_size N] \
-      [--mask_rcnn] [--roi_slice] [--escalate_h 256] [--device cuda|cpu]
+      [--mask_rcnn] [--roi_slice] [--escalate_h 256] [--int8] \
+      [--device cuda|cpu]
   python -m zebrapose_tpu_torch score-bop --csv sub.csv --bop_path DIR \
       --dataset lmo [--split test] [--no_vsd] [--device cuda|cpu]
   python -m zebrapose_tpu_torch merge-csv a.csv b.csv --out all.csv
@@ -21,20 +23,22 @@
       [--log_freq N] [--device cuda|cpu]
   python -m zebrapose_tpu_torch test-fleet --cfg cfg.txt \
       --obj_names ape can --ckpt_files a.pth b.pth [--batch_size N] \
-      [--mask_rcnn] [--roi_slice] [--escalate_h 256] [--device cuda|cpu]
+      [--mask_rcnn] [--roi_slice] [--escalate_h 256] [--int8] \
+      [--device cuda|cpu]
   python -m zebrapose_tpu_torch vivo-fleet --cfg cfg.txt \
       --obj_names ape can --ckpt_files a.pth b.pth [--score_threshold 0.2] \
-      [--batch_size N] [--mask_rcnn] [--roi_slice] [--device cuda|cpu]
+      [--batch_size N] [--mask_rcnn] [--roi_slice] [--int8] \
+      [--device cuda|cpu]
   python -m zebrapose_tpu_torch export-serving --cfg cfg.txt --obj_name ape \
       --ckpt_file <.npz or .pth> --out ape.serving [--batch 64 | 0] \
-      [--image_h 480 --image_w 640] [--f32] [--roi_slice] \
+      [--image_h 480 --image_w 640] [--f32] [--int8] [--roi_slice] \
       [--n_hypotheses 128] [--max_points 4096] [--device cuda|cpu]
   python -m zebrapose_tpu_torch serve-exported --cfg cfg.txt --obj_name ape \
       --blob ape.serving [--vivo] [--batch_size N] [--seed 0] \
       [--device cuda|cpu]
   python -m zebrapose_tpu_torch export-serving-fleet --cfg cfg.txt \
       --obj_names ape can --ckpt_files a.pth b.pth --out fleet.serving \
-      [--batch 16] [--f32] [--device cuda|cpu]
+      [--batch 16] [--f32] [--int8] [--device cuda|cpu]
   python -m zebrapose_tpu_torch serve-exported-fleet --cfg cfg.txt \
       --obj_names ape can --blob fleet.serving [--vivo] [--device cuda|cpu]
 
@@ -42,9 +46,13 @@ The flags are those of `python -m zebrapose_tpu train` / `test` /
 `vivo` / `score-bop` plus `--device` (default cuda; without CUDA a
 command fails unless `--device cpu` is given). `train` writes
 `<output_dir>/<dataset>_<obj>/checkpoints/` (reference-format .pth files
-that `test` loads) and `logs/metrics.jsonl`. Its `--qat`, `--multihost`
-and `--input_mode prefetch | device_cache` raise NotImplementedError, as
-`--int8` does for `test` and `vivo`. `vivo` (the BOP-challenge
+that `test` loads) and `logs/metrics.jsonl`; `--qat` trains through the
+fake-quant convs, and the checkpoint loads unchanged into `--int8`. Its
+`--multihost` and `--input_mode prefetch | device_cache` raise
+NotImplementedError. `--int8` on `test`, `vivo`, `test-fleet`,
+`vivo-fleet`, `export-serving` and `export-serving-fleet` runs the convs
+above the int8 gate on the int8 CUDA kernels (`ops/int8_conv.py`; the
+plain versions with `--device cpu`). `vivo` (the BOP-challenge
 multi-instance protocol over detections) writes the submission CSV that
 `score-bop` scores (BOP19 AR_vsd / AR_mssd / AR_mspd; the result is
 printed as JSON). The config file is the reference's flat `key = value`
@@ -58,8 +66,8 @@ accelerator either, so this is not a CPU fallback. `train-fleet`,
 `test-fleet` and `vivo-fleet` are the fleet commands: K objects' models
 in one program (`train/fleet.py`, `eval/fleet_serve.py`), each member
 writing the single-object command's files under its own name and the
-evaluations one merged submission CSV; `--int8` (A6) and `test-fleet
---debug` (A7) raise NotImplementedError. `export-serving` and
+evaluations one merged submission CSV; `test-fleet --debug` (A7) raises
+NotImplementedError. `export-serving` and
 `export-serving-fleet` write the eval program of one object or of K
 objects, weights and LUT included, as one `torch.export` artifact
 (`eval/export_serving.py`) bound to the device it was traced on;
@@ -106,6 +114,9 @@ def _pnp_cfg_from_args(args):
 
 
 _UNPORTED = "is not ported yet (see ROADMAP.md, queue A)"
+_INT8_HELP = ("int8 conv compute: per-channel weight and dynamic "
+              "per-tensor activation quantization of the convs above the "
+              "gate, int32 accumulation (the int8 CUDA kernels)")
 
 
 def _add_train(sub):
@@ -135,7 +146,11 @@ def _add_train(sub):
                    help="bf16 autocast of the forward (parameters, "
                         "optimizer and losses stay f32)")
     p.add_argument("--qat", action="store_true",
-                   help="quantization-aware training (not ported yet)")
+                   help="quantization-aware training: the convs above the "
+                        "int8 gate run the differentiable int8 simulation "
+                        "(STE); the checkpoint serves with --int8 "
+                        "(typically a short fine-tune of a float "
+                        "checkpoint)")
     p.add_argument("--multihost", action="store_true",
                    help="multi-host training (not ported yet)")
     p.add_argument("--input_mode", default="stream",
@@ -155,8 +170,6 @@ def _add_train(sub):
 
 
 def _train(args) -> int:
-    if args.qat:
-        raise NotImplementedError("--qat " + _UNPORTED + " (A6)")
     if args.multihost:
         raise NotImplementedError("--multihost " + _UNPORTED + " (A8)")
     if args.input_mode != "stream":
@@ -174,8 +187,9 @@ def _train(args) -> int:
         cfg, args.obj_name, out, variant=args.variant,
         pretrained_backbone=(None if args.from_scratch
                              else args.pretrained_backbone),
-        bf16=args.bf16, gamma=args.gamma, log_freq=args.log_freq,
-        cache_images=args.cache_images, accum_steps=args.accum_steps,
+        bf16=args.bf16, qat=args.qat, gamma=args.gamma,
+        log_freq=args.log_freq, cache_images=args.cache_images,
+        accum_steps=args.accum_steps,
         gt_dir_suffix="_GT" if args.gt_labels == "v1" else "_GT_v2",
         device=device)
     timing = {}
@@ -231,7 +245,7 @@ def _add_fleet(sub):
         if name == "test-fleet":
             p.add_argument("--max_samples", type=int, default=None)
         p.add_argument("--int8", action="store_true",
-                       help="int8 conv compute (not ported yet)")
+                       help=_INT8_HELP)
         p.add_argument("--mask_rcnn", action="store_true",
                        help="each object's detector RLE segmentation "
                             "instead of its mask head")
@@ -334,7 +348,8 @@ def _add_serving(sub):
         q.add_argument("--variant", default="v2",
                        choices=["v1", "v2", "v3"])
         q.add_argument("--int8", action="store_true",
-                       help="int8 conv compute (not ported yet)")
+                       help="bake the int8 serving convs into the "
+                            "artifact (" + _INT8_HELP + ")")
         q.add_argument("--n_hypotheses", type=int, default=128,
                        help="RANSAC hypothesis count baked into the blob")
         q.add_argument("--max_points", type=int, default=4096,
@@ -404,8 +419,6 @@ def _export_serving(args, cfg, device) -> int:
                 f"--{flag}: a torch.export program runs on the device it "
                 "was exported on, with that device's EPnP kernel; export "
                 "on the serving device instead (--device)")
-    if args.int8:
-        raise NotImplementedError("int8 serving " + _UNPORTED + " (A6)")
     fleet = args.command == "export-serving-fleet"
     names = args.obj_names if fleet else [args.obj_name]
     luts = [load_correspondence_lut(os.path.join(
@@ -426,11 +439,12 @@ def _export_serving(args, cfg, device) -> int:
         if len(args.ckpt_files) != len(names):
             raise SystemExit("need one checkpoint per object")
         model, variables = _fleet_model(cfg, args.variant, args.ckpt_files,
-                                        device)
+                                        device, quant=args.int8)
         module = es.build_fleet_serving_fn(model, variables, luts,
                                            bf16=not args.f32, **kw)
     else:
-        model = load_model(cfg, args.ckpt_file, args.variant, device=device)
+        model = load_model(cfg, args.ckpt_file, args.variant, device=device,
+                           quant=args.int8)
         if not args.f32:
             model = model.to(torch.bfloat16)
         module = es.build_serving_fn(model, luts[0],
@@ -443,7 +457,7 @@ def _export_serving(args, cfg, device) -> int:
                     max(w for _, w in naturals))
         print(f"roi_slice buffer from the walk: {image_hw}")
     meta = {"dataset": cfg.dataset_name, "roi_slice": args.roi_slice,
-            "f32": args.f32}
+            "f32": args.f32, "int8": args.int8}
     meta.update({"obj_names": names} if fleet else {"obj_name": names[0]})
     t0 = time.perf_counter()
     blob = es.export_serving(module, args.batch or None, image_hw, meta=meta)
@@ -453,7 +467,8 @@ def _export_serving(args, cfg, device) -> int:
     print(json.dumps({
         "out": args.out, "bytes": len(blob), "n_models": len(names),
         "batch": args.batch or "symbolic", "image_hw": list(image_hw),
-        "roi_slice": args.roi_slice, "device": str(device),
+        "roi_slice": args.roi_slice, "int8": args.int8,
+        "device": str(device),
         "export_s": export_s}))
     return 0
 
@@ -500,8 +515,7 @@ def main(argv=None):
     p_test.add_argument("--mask_rcnn", action="store_true",
                         help="use the detector's RLE segmentation instead "
                              "of the mask head (test_for_mask_rcnn.py)")
-    p_test.add_argument("--int8", action="store_true",
-                        help="int8 conv compute (not ported yet)")
+    p_test.add_argument("--int8", action="store_true", help=_INT8_HELP)
     p_test.add_argument("--roi_slice", action="store_true",
                         help="ship only each frame's clamped square-bbox "
                              "bytes to the device (bit-exact crops)")
@@ -521,8 +535,7 @@ def main(argv=None):
     p_vivo.add_argument("--variant", default="v2")
     p_vivo.add_argument("--score_threshold", type=float, default=0.2)
     p_vivo.add_argument("--batch_size", type=int, default=16)
-    p_vivo.add_argument("--int8", action="store_true",
-                        help="int8 conv compute (not ported yet)")
+    p_vivo.add_argument("--int8", action="store_true", help=_INT8_HELP)
     p_vivo.add_argument("--mask_rcnn", action="store_true",
                         help="use detector RLE segmentations "
                              "(test_vivo_for_mask_rcnn.py)")

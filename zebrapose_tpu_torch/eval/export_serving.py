@@ -183,8 +183,9 @@ def build_fleet_serving_fn(model: torch.nn.Module,
     False)`): torch.export's graph of the vmapped forward holds a
     functorch call that torch 2.11's serializer refuses. bf16 casts the
     stacked floating-point state and the image to bf16, as
-    `build_serving_fn` runs a bf16 model. Inputs are flat [K·B, ...]
-    rows in object-major order; outputs are [K, B, ...]."""
+    `build_serving_fn` runs a bf16 model (`cast_variables`: an int8
+    `model`'s quantized convs keep f32 parameters). Inputs are flat
+    [K·B, ...] rows in object-major order; outputs are [K, B, ...]."""
     from zebrapose_tpu_torch.eval.fleet_serve import (
         make_fleet_eval_step,
         model_forward,
@@ -195,8 +196,9 @@ def build_fleet_serving_fn(model: torch.nn.Module,
     lp, lv = stack_luts(luts)
     dtype = torch.bfloat16 if bf16 else torch.float32
     if bf16:
-        variables = {n: v.to(dtype) if v.is_floating_point() else v
-                     for n, v in variables.items()}
+        from zebrapose_tpu_torch.models.layers import cast_variables
+
+        variables = cast_variables(model, variables, dtype)
     forward = model_forward(model)
     step = make_fleet_eval_step(
         lambda b, v: forward({"image": b["image"].to(dtype)}, v), lp, lv,
@@ -280,15 +282,17 @@ class ServingProgram:
 
     def __call__(self, *args):
         """The program on the serving signature's inputs. A symbolic-batch
-        program takes a batch of two or more: a batch of one gets a zero
-        row an object (valid = 0, as the runners pad a tail), cut off
-        the outputs."""
+        program takes a batch of two or more: a batch of one gets a copy
+        of its row an object, cut off the outputs. A copy, not a zero
+        row: an int8 program's activation scale is the max over the
+        batch, which a copy leaves as the row's own, so the lone crop is
+        posed as a batch-1 program would pose it."""
         k = self.n_models
         one = self.batch is None and args[0].shape[0] == k
         if one:
             def pad(x, flat):
                 x = x.reshape((k, 1) + x.shape[1 if flat else 2:])
-                x = torch.cat([x, torch.zeros_like(x)], 1)
+                x = torch.cat([x, x], 1)
                 return x.flatten(0, 1) if flat else x
 
             args = [pad(x, True) for x in args[:5]] + \
@@ -324,7 +328,10 @@ def load_serving(blob_or_path, device=None) -> ServingProgram:
     `device` (CUDA unless "cpu" is asked for), which must be the device
     it was exported on. Shapes must match the export; pad the tail batch
     as the runners do (`serve_dataset` does)."""
-    # registers zebrapose::epnp_minimal_hypotheses, which the program calls
+    # registers the custom ops the program calls:
+    # zebrapose::epnp_minimal_hypotheses, and for an int8 program
+    # zebrapose::quantize_act and zebrapose::int8_conv2d
+    import zebrapose_tpu_torch.ops.int8_conv  # noqa: F401
     import zebrapose_tpu_torch.ops.pnp_kernel  # noqa: F401
 
     if isinstance(blob_or_path, (bytes, bytearray)):

@@ -24,8 +24,13 @@ single-object path's `batch_generator(seed, start)`.
 
 `run_test_fleet` and `run_vivo_fleet` are the `test-fleet` and
 `vivo-fleet` commands on the device (CUDA unless "cpu" is asked for).
-Refused, each queued in ROADMAP.md: int8 (A6) and debug dumps (A7). The
-port drives one card, so there is no model-axis mesh (A8).
+With `int8` the members' convs are the int8 serving convs
+(`models/layers.py`) and their forwards run in turn
+(`make_fleet_eval_step(vmap_forward=False)`): each member's activation
+scale is then taken over its own crops, as under JAX's vmap, and the
+int8 kernels need no batching rule. Refused, queued in ROADMAP.md: debug
+dumps (A7). The port drives one card, so there is no model-axis mesh
+(A8).
 """
 
 from __future__ import annotations
@@ -298,9 +303,11 @@ def fleet_infer(datasets, fleet_step, variables, batch_size: int,
                                 for got in extra)
 
 
-def _fleet_model(cfg, variant: str, ckpt_files: Sequence[str], dev):
+def _fleet_model(cfg, variant: str, ckpt_files: Sequence[str], dev,
+                 quant=False):
     """The members' architecture (on the meta device: functional_call
-    never reads its weights) in eval mode, and their stacked weights."""
+    never reads its weights; `quant` its convs' int8 mode) in eval mode,
+    and their stacked weights."""
     from zebrapose_tpu_torch.eval.runner import load_model_variables
     from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
 
@@ -310,7 +317,7 @@ def _fleet_model(cfg, variant: str, ckpt_files: Sequence[str], dev):
             base=cfg.divide_number_each_itration, variant=variant,
             resnet_layers=cfg.resnet_layer,
             concat=cfg.concat_encoder_decoder,
-            output_kernel_size=cfg.output_kernel_size).eval()
+            output_kernel_size=cfg.output_kernel_size, quant=quant).eval()
     shapes = {n: t.shape for n, t in model.state_dict().items()}
     names = set(shapes)
     # one name a tensor: the state dict also holds the `resnet_layer_*`
@@ -334,7 +341,7 @@ def _fleet_model(cfg, variant: str, ckpt_files: Sequence[str], dev):
 
 
 def _fleet_step(cfg, model, lp, lv, pnp_cfg, mask_rcnn: bool,
-                return_masks: bool, dev):
+                return_masks: bool, dev, int8: bool = False):
     return make_fleet_eval_step(
         model_forward(model), lp, lv,
         crop_img=cfg.BoundingBox_CropSize_image,
@@ -342,7 +349,8 @@ def _fleet_step(cfg, model, lp, lv, pnp_cfg, mask_rcnn: bool,
         base=cfg.divide_number_each_itration,
         n_bits=cfg.number_of_itration, resize_method=cfg.resize_method,
         loss_type=cfg.BinaryCode_Loss_Type, pnp_cfg=pnp_cfg or PnPConfig(),
-        mask_from_dataset=mask_rcnn, return_masks=return_masks, device=dev)
+        mask_from_dataset=mask_rcnn, return_masks=return_masks,
+        vmap_forward=not int8, device=dev)
 
 
 def _share_slice_buffer(datasets) -> None:
@@ -367,8 +375,9 @@ def run_test_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
     `<output_dir>/<dataset>_fleet.csv`. cfg.refine runs the host contour
     refinement per object on the fleet's own masks (`refine_poses`), as
     `run_test` does; mask_rcnn takes each object's detector RLE in place
-    of its mask head; roi_slice imposes the fleet-wide max buffer.
-    Prints a `timing {...}` line (seconds by stage)."""
+    of its mask head; roi_slice imposes the fleet-wide max buffer; int8
+    runs the int8 serving convs (module docstring). Prints a
+    `timing {...}` line (seconds by stage)."""
     from zebrapose_tpu_torch.data import bop_io
     from zebrapose_tpu_torch.data.bop_writer import (
         merge_csv,
@@ -382,8 +391,6 @@ def run_test_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
         refine_poses,
     )
 
-    if int8:
-        raise NotImplementedError("int8 inference " + _UNPORTED + " (A6)")
     if debug:
         raise NotImplementedError("debug dumps (utils/visualize.py) "
                                   + _UNPORTED + " (A7)")
@@ -404,10 +411,10 @@ def run_test_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
     if roi_slice:
         _share_slice_buffer([oe.dataset for oe in oes])
     t1 = time.perf_counter()
-    model, variables = _fleet_model(cfg, variant, ckpt_files, dev)
+    model, variables = _fleet_model(cfg, variant, ckpt_files, dev, int8)
     lp, lv = stack_luts([oe.lut for oe in oes])
     step = _fleet_step(cfg, model, lp, lv, pnp_cfg, mask_rcnn, cfg.refine,
-                       dev)
+                       dev, int8)
     t2 = time.perf_counter()
 
     timing: Dict[str, float] = {}
@@ -462,8 +469,8 @@ def run_vivo_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
     each object's CSV carries the detector scores (failed instances
     score -1 and are dropped), plus one merged submission CSV
     `<output_dir>/<dataset>_vivo_fleet.csv`. Objects without a detection
-    are skipped with a warning (instances 0). Prints a `timing {...}`
-    line."""
+    are skipped with a warning (instances 0); int8 as in
+    `run_test_fleet`. Prints a `timing {...}` line."""
     from zebrapose_tpu_torch.codec.lut import load_correspondence_lut
     from zebrapose_tpu_torch.data import bop_io
     from zebrapose_tpu_torch.data import detections as det_mod
@@ -475,8 +482,6 @@ def run_vivo_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
     from zebrapose_tpu_torch.data.dataset_info import lookup_obj_id
     from zebrapose_tpu_torch.eval.vivo import build_vivo_dataset
 
-    if int8:
-        raise NotImplementedError("int8 inference " + _UNPORTED + " (A6)")
     if len(ckpt_files) != len(obj_names):
         raise ValueError("need one checkpoint per object")
     dev = resolve_device(device)
@@ -512,11 +517,13 @@ def run_vivo_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
         _share_slice_buffer([ds for _, _, _, ds, _ in live])
     t1 = time.perf_counter()
     model, variables = _fleet_model(cfg, variant,
-                                    [ck for _, ck, _, _, _ in live], dev)
+                                    [ck for _, ck, _, _, _ in live], dev,
+                                    int8)
     lp, lv = stack_luts([load_correspondence_lut(os.path.join(
         dataset_dir, "models_GT_color", f"Class_CorresPoint{oid:06d}.txt"))
         for _, _, oid, _, _ in live])
-    step = _fleet_step(cfg, model, lp, lv, pnp_cfg, mask_rcnn, False, dev)
+    step = _fleet_step(cfg, model, lp, lv, pnp_cfg, mask_rcnn, False, dev,
+                       int8)
     t2 = time.perf_counter()
 
     timing: Dict[str, float] = {}

@@ -8,10 +8,11 @@ evaluation on the device (CUDA unless "cpu" is asked for), with the
 optional contour refinement pass on the host (`cfg.refine`: the native
 border follower and Gauss-Newton refiner, `native/`).
 
-Refused with NotImplementedError, each queued in ROADMAP.md (queue A):
-orbax checkpoint directories (A7: convert them with the JAX package's
-`export-ckpt`), `debug` dumps (A7, `utils/visualize.py`) and int8
-serving (A6).
+`int8` runs the int8 serving convs (`models/layers.py`, the kernels of
+`ops/int8_conv.py` on the card). Refused with NotImplementedError, each
+queued in ROADMAP.md (queue A): orbax checkpoint directories (A7:
+convert them with the JAX package's `export-ckpt`) and `debug` dumps
+(A7, `utils/visualize.py`).
 """
 
 from __future__ import annotations
@@ -75,9 +76,10 @@ def load_model_variables(ckpt_file: str, variant: str = "v2",
 
 
 def load_model(cfg: ZebraConfig, ckpt_file: str, variant: str = "v2",
-               device=None) -> ZebraPoseNet:
+               device=None, quant=False) -> ZebraPoseNet:
     """The config's ZebraPoseNet with the checkpoint's weights (strict),
-    in eval mode on `device`, channels-last."""
+    in eval mode on `device`, channels-last; `quant` its convs' int8
+    mode (True: int8 serving)."""
     from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
 
     dev = resolve_device(device)
@@ -86,7 +88,7 @@ def load_model(cfg: ZebraConfig, ckpt_file: str, variant: str = "v2",
         base=cfg.divide_number_each_itration, variant=variant,
         resnet_layers=cfg.resnet_layer,
         concat=cfg.concat_encoder_decoder,
-        output_kernel_size=cfg.output_kernel_size)
+        output_kernel_size=cfg.output_kernel_size, quant=quant)
     model.load_state_dict(load_model_variables(
         ckpt_file, variant, resnet_layers=cfg.resnet_layer,
         nonbinary=cfg.divide_number_each_itration != 2), strict=True)
@@ -295,9 +297,9 @@ def run_test(cfg: ZebraConfig, obj_name: str, ckpt_file: str,
     segmentation replaces the network's mask head (reference
     test_for_mask_rcnn.py), and refinement reads the dataset's entire
     mask. roi_slice: the host ships only each frame's clamped
-    square-bbox bytes (bit-identical crops)."""
-    if int8:
-        raise NotImplementedError("int8 inference " + _UNPORTED + " (A6)")
+    square-bbox bytes (bit-identical crops). int8: the int8 serving
+    convs (same checkpoint; per-channel weight and dynamic per-tensor
+    activation quantization, `models/layers.py::_int8_conv`)."""
     if debug:
         raise NotImplementedError(
             "debug dumps (utils/visualize.py, and the refiner's debug "
@@ -307,7 +309,7 @@ def run_test(cfg: ZebraConfig, obj_name: str, ckpt_file: str,
     oe = prepare_object_eval(cfg, obj_name, max_samples=max_samples,
                              mask_rcnn=mask_rcnn, roi_slice=roi_slice)
     t1 = time.perf_counter()
-    model = load_model(cfg, ckpt_file, variant, device=dev)
+    model = load_model(cfg, ckpt_file, variant, device=dev, quant=int8)
     step = build_eval_step(cfg, model, oe.lut, pnp_cfg or PnPConfig(),
                            ignore_bit=ignore_bit, mask_rcnn=mask_rcnn,
                            return_masks=cfg.refine, device=dev)

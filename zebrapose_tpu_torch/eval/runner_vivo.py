@@ -3,8 +3,8 @@
 Port of `zebrapose_tpu/eval/runner_vivo.py`: the GT-less image walk,
 every detection above the score threshold, the model and eval program of
 the `test` runner (`eval/runner.py`), the score-carrying BOP CSV, on the
-device (CUDA unless "cpu" is asked for). `--int8` is not ported yet
-(ROADMAP.md, queue A).
+device (CUDA unless "cpu" is asked for), with the int8 serving convs
+under `int8`.
 """
 
 from __future__ import annotations
@@ -21,11 +21,7 @@ from zebrapose_tpu_torch.config import ZebraConfig
 from zebrapose_tpu_torch.data import bop_io
 from zebrapose_tpu_torch.data import detections as det_mod
 from zebrapose_tpu_torch.data.dataset_info import lookup_obj_id
-from zebrapose_tpu_torch.eval.runner import (
-    _UNPORTED,
-    build_eval_step,
-    load_model,
-)
+from zebrapose_tpu_torch.eval.runner import build_eval_step, load_model
 from zebrapose_tpu_torch.eval.vivo import build_vivo_dataset, evaluate_vivo
 from zebrapose_tpu_torch.ops.pnp import PnPConfig
 from zebrapose_tpu_torch.utils.device import resolve_device
@@ -43,9 +39,7 @@ def run_vivo(cfg: ZebraConfig, obj_name: str, ckpt_file: str,
     `output_dir/pose_result_bop/<dataset>_<obj>.csv` (solved instances,
     each with its detection's score) and {"instances", "solved",
     "solve_rate"}. Prints a `timing {...}` line (seconds by stage, as
-    `run_test` does)."""
-    if int8:
-        raise NotImplementedError("int8 inference " + _UNPORTED + " (A6)")
+    `run_test` does). int8: the int8 serving convs, as in `run_test`."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     obj_id = lookup_obj_id(cfg.dataset_name, obj_name)
@@ -72,7 +66,7 @@ def run_vivo(cfg: ZebraConfig, obj_name: str, ckpt_file: str,
         cfg.bop_path, cfg.dataset_name, "models_GT_color",
         f"Class_CorresPoint{obj_id:06d}.txt"))
     t1 = time.perf_counter()
-    model = load_model(cfg, ckpt_file, variant, device=dev)
+    model = load_model(cfg, ckpt_file, variant, device=dev, quant=int8)
     step = build_eval_step(cfg, model, lut, pnp_cfg or PnPConfig(),
                            mask_rcnn=mask_rcnn, device=dev)
     t2 = time.perf_counter()

@@ -40,13 +40,15 @@ def _conv_bn_relu(conv: nn.Module, bn: nn.Module, x):
 class UpsampleBlock(nn.Sequential):
     """ConvT(s2) + BN + ReLU + 2 x (Conv3x3 + BN + ReLU)."""
 
-    def __init__(self, features: int, in_features: int):
+    def __init__(self, features: int, in_features: int, quant=False):
         super().__init__(
             TorchConvTranspose(features, in_features, 3, 2, 1, 1),
             TorchBatchNorm(features), nn.ReLU(),
-            TorchConv(features, features, 3, 1, 1, use_bias=False),
+            TorchConv(features, features, 3, 1, 1, use_bias=False,
+                      quant=quant),
             TorchBatchNorm(features), nn.ReLU(),
-            TorchConv(features, features, 3, 1, 1, use_bias=False),
+            TorchConv(features, features, 3, 1, 1, use_bias=False,
+                      quant=quant),
             TorchBatchNorm(features), nn.ReLU())
 
 
@@ -57,25 +59,28 @@ _BRANCHES = (("conv_1x1_1", 1, 0, 1), ("conv_3x3_1", 3, 6, 6),
 class _Trunk(nn.Module):
     """The decoders' shared trunk; `branches` names the dilated branches
     (a prefix of _BRANCHES), `fuse_extra` the channels concatenated
-    after them before the 1x1 fuse, `up2_in` upsample_2's input."""
+    after them before the 1x1 fuse, `up2_in` upsample_2's input. `quant`
+    (every trunk conv's int8 mode) leaves the transposed convs and the
+    output convs float, as in JAX."""
 
     def __init__(self, branches: Sequence[str], in_channels: int,
-                 fuse_extra: int, up2_in: int, concat: bool = True):
+                 fuse_extra: int, up2_in: int, concat: bool = True,
+                 quant=False):
         super().__init__()
         self.concat = concat
         self._branches = tuple(branches)
         for name, k, pad, dil in _BRANCHES:
             if name in self._branches:
                 setattr(self, name, TorchConv(in_channels, 256, k, 1, pad,
-                                              dil))
+                                              dil, quant=quant))
                 setattr(self, "bn_" + name, TorchBatchNorm(256))
-        self.conv_1x1_2 = TorchConv(in_channels, 256, 1)
+        self.conv_1x1_2 = TorchConv(in_channels, 256, 1, quant=quant)
         self.bn_conv_1x1_2 = TorchBatchNorm(256)
         self.conv_1x1_3 = TorchConv(256 * (len(self._branches) + 1)
-                                    + fuse_extra, 256, 1)
+                                    + fuse_extra, 256, 1, quant=quant)
         self.bn_conv_1x1_3 = TorchBatchNorm(256)
-        self.upsample_1 = UpsampleBlock(256, 256)
-        self.upsample_2 = UpsampleBlock(256, up2_in)
+        self.upsample_1 = UpsampleBlock(256, 256, quant)
+        self.upsample_2 = UpsampleBlock(256, up2_in, quant)
 
     def fused(self, x_high, extra: Sequence[torch.Tensor] = ()):
         """The branches, the global pool and `extra`, fused: [N, 256, h,
@@ -108,9 +113,9 @@ class ASPP(_Trunk):
 
     def __init__(self, num_classes: int, concat: bool = True,
                  output_kernel_size: int = 1, in_channels: int = 512,
-                 skip_lo_ch: int = 64, skip_hi_ch: int = 64):
+                 skip_lo_ch: int = 64, skip_hi_ch: int = 64, quant=False):
         super().__init__(_ALL, in_channels, 0,
-                         256 + skip_lo_ch if concat else 256, concat)
+                         256 + skip_lo_ch if concat else 256, concat, quant)
         k = output_kernel_size
         self.conv_1x1_4 = TorchConv(256 + skip_hi_ch, num_classes, k, 1,
                                     1 if k == 3 else 0)
@@ -124,8 +129,9 @@ class ASPPNonBinary(_Trunk):
     [N, 1, h/2, w/2], code [N, code_length * base, h/2, w/2]) logits."""
 
     def __init__(self, code_length: int, base: int, concat: bool = True,
-                 output_kernel_size: int = 1):
-        super().__init__(_ALL, 512, 0, 256 + 64 if concat else 256, concat)
+                 output_kernel_size: int = 1, quant=False):
+        super().__init__(_ALL, 512, 0, 256 + 64 if concat else 256, concat,
+                         quant)
         k = output_kernel_size
         pad = 1 if k == 3 else 0
         self.conv_1x1_4_mask = TorchConv(256 + 64, 1, k, 1, pad)
@@ -141,8 +147,9 @@ class ASPPv3(_Trunk):
     """The v3 entire-mask decoder: (mask [N, 1, h/2, w/2] logits of the
     first decoder, x_high, x_128, x_64) -> [N, num_classes, h/2, w/2]."""
 
-    def __init__(self, num_classes: int = 1, output_kernel_size: int = 1):
-        super().__init__(_ALL[:3], 512, 1, 256 + 64 + 1)
+    def __init__(self, num_classes: int = 1, output_kernel_size: int = 1,
+                 quant=False):
+        super().__init__(_ALL[:3], 512, 1, 256 + 64 + 1, quant=quant)
         k = output_kernel_size
         self.conv_1x1_4 = TorchConv(256 + 64 + 1, num_classes, k, 1,
                                     1 if k == 3 else 0)

@@ -36,24 +36,27 @@ _HEADS = {"v1": 1, "v2": 2, "v3": 1}
 
 class _Net(nn.Module):
     def __init__(self, code_length: int, base: int, variant: str,
-                 resnet_layers: int, concat: bool, output_kernel_size: int):
+                 resnet_layers: int, concat: bool, output_kernel_size: int,
+                 quant=False):
         super().__init__()
         self.variant, self.base = variant, base
         if resnet_layers == 34:
-            self.resnet = ResNet34OS8()
+            self.resnet = ResNet34OS8(quant)
             in_ch, skip_lo = 512, 64
         else:
-            self.resnet = ResNet50OS8()
+            self.resnet = ResNet50OS8(quant)
             in_ch, skip_lo = 2048, 256     # x_high and x_64 widths
         if base != 2:
             self.aspp = ASPPNonBinary(code_length, base, concat=concat,
-                                      output_kernel_size=output_kernel_size)
+                                      output_kernel_size=output_kernel_size,
+                                      quant=quant)
             return
         self.aspp = ASPP(code_length + _HEADS[variant], concat=concat,
                          output_kernel_size=output_kernel_size,
-                         in_channels=in_ch, skip_lo_ch=skip_lo)
+                         in_channels=in_ch, skip_lo_ch=skip_lo, quant=quant)
         if variant == "v3":
-            self.aspp_v3 = ASPPv3(1, output_kernel_size=output_kernel_size)
+            self.aspp_v3 = ASPPv3(1, output_kernel_size=output_kernel_size,
+                                  quant=quant)
 
     def forward(self, x):
         x_high, x_128, x_64, _, _ = self.resnet(x)
@@ -66,11 +69,18 @@ class _Net(nn.Module):
 class ZebraPoseNet(nn.Module):
     """Encoder-decoder predicting the visible mask, (v2 / v3) the entire
     mask, and the code planes (`binary_code_length` of them, or
-    `binary_code_length` groups of `base` CE logits for base > 2)."""
+    `binary_code_length` groups of `base` CE logits for base > 2).
+
+    quant: the convs' int8 mode, with unchanged parameters (JAX's
+    `quant`): False; True, int8 serving (inference only); "qat", the
+    differentiable int8 simulation for quantization-aware training. The
+    gate, the heads and the transposed convs stay as in JAX
+    (`models/layers.py`)."""
 
     def __init__(self, binary_code_length: int = 16, base: int = 2,
                  variant: str = "v2", resnet_layers: int = 34,
-                 concat: bool = True, output_kernel_size: int = 1):
+                 concat: bool = True, output_kernel_size: int = 1,
+                 quant=False):
         super().__init__()
         if variant not in _HEADS:
             raise ValueError(f"variant {variant!r}: v1, v2 or v3")
@@ -81,9 +91,9 @@ class ZebraPoseNet(nn.Module):
             # non-binary ablation head for the 34-layer backbone only
             raise NotImplementedError(
                 "v3 / non-binary variants require resnet_layers=34")
-        self.variant, self.base = variant, base
+        self.variant, self.base, self.quant = variant, base, quant
         self.net = _Net(binary_code_length, base, variant, resnet_layers,
-                        concat, output_kernel_size)
+                        concat, output_kernel_size, quant)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """x [N, H, W, 3] -> logits {"mask" [N,H/2,W/2,1], ("entire_mask"

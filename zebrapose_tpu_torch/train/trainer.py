@@ -364,7 +364,7 @@ def build_train_setup(cfg: ZebraConfig, obj_name: str, output_dir: str,
                       max_val_samples: int = 512, bf16: bool = False,
                       gamma: float = 1.0, log_freq: int = 1000,
                       cache_images: bool = False, accum_steps: int = 1,
-                      device=None) -> TrainResources:
+                      qat: bool = False, device=None) -> TrainResources:
     """Assemble TrainResources from a BOP tree (train_v2.py:40-223) on
     `device` (CUDA unless "cpu" is asked for).
 
@@ -377,7 +377,13 @@ def build_train_setup(cfg: ZebraConfig, obj_name: str, output_dir: str,
     batch_size / accum_steps micro-batches. cache_images holds decoded
     frames in host RAM (~2.4 MB a 480x640 sample). With
     cfg.load_checkpoint the latest rolling checkpoint under
-    `<output_dir>/checkpoints` is restored.
+    `<output_dir>/checkpoints` is restored. qat: quantization-aware
+    training, the convs above the int8 gate run the differentiable int8
+    simulation (`models/layers.py::_fake_quant_conv`), so `fit`'s pose
+    validation measures the quantized forward too; the parameters are
+    unchanged, so the checkpoints load into an int8 model (`test
+    --int8`). Start from a float checkpoint (cfg.load_checkpoint) and
+    fine-tune briefly, as with the JAX package.
     """
     from zebrapose_tpu_torch.codec.lut import load_correspondence_lut
     from zebrapose_tpu_torch.data import bop_io
@@ -438,7 +444,8 @@ def build_train_setup(cfg: ZebraConfig, obj_name: str, output_dir: str,
             base=cfg.divide_number_each_itration, variant=variant,
             resnet_layers=cfg.resnet_layer,
             concat=cfg.concat_encoder_decoder,
-            output_kernel_size=cfg.output_kernel_size)
+            output_kernel_size=cfg.output_kernel_size,
+            quant="qat" if qat else False)
     if pretrained_backbone:
         load_torchvision_resnet34(model, torch.load(
             pretrained_backbone, map_location="cpu", weights_only=True))
