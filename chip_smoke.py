@@ -23,7 +23,8 @@ check exits non-zero. Phases:
                  its device time under torch.profiler) vs plain vs bound
   7. runner      `python -m zebrapose_tpu_torch test` (cli.main, in this
                  process) over a BOP tree the port writes: 120 sphere
-                 frames whose rgb rows cycle through PNG filters 0-4, the
+                 frames (the first CYCLE_FRAMES with rgb rows cycling
+                 through PNG filters 0-4, the rest Sub rows), the
                  committed rehearsal LUT and checkpoint, b32, plain and
                  escalated; the collated frames against the written
                  ones, the CSV, the kernel's launches, the runner against
@@ -126,13 +127,20 @@ check exits non-zero. Phases:
                  37 quantized convs each one quantize_act and one
                  int8_conv2d launch a forward, counted from 0; crops/s
                  in turns with the bf16 step; hard mask / code bits
-                 against the bf16 forward); both kernels bit-equal to
-                 their plain versions on every quantized conv's input
-                 of the b32 forward and on edge sets (Cin 40, stride 2,
-                 dilation 18 on 32² at batch 1, a 1x1 map, an all-zero
-                 input), timed at upsample_2's shape (b32, b256) against
-                 their bounds, cuDNN's bf16 conv and torch._int_mm over
-                 an im2col; then over the trees of phases 7-12: `test
+                 against the bf16 forward; int8_conv2d's launches by
+                 route, every one on "wgmma"); both kernels bit-equal
+                 to their plain versions on every quantized conv's input
+                 of the bf16 b32 and b256 forwards and of the f32 b32
+                 forward, and on edge sets, each on the route
+                 `conv_route` gives it (Cin 40 and Cin 1025 on "gather";
+                 stride 2, dilation 18 on 32² at batch 1, a 1x1 map, an
+                 all-zero input, partial spatial and Cout tiles in bf16
+                 and in f32 with an odd Cout, a 1x1 Cin 64 and a 1x1
+                 stride 2 on "wgmma"), timed at upsample_2's shape (b32,
+                 b256) against their bounds and cuDNN's bf16 conv, and
+                 summed over one forward's 37 quantized convs against
+                 the summed bound (b32, b256); then over the trees of
+                 phases 7-12: `test
                  --int8` (TF32 off; recall against the JAX package's
                  `test --int8`), `vivo --int8` + `score-bop`,
                  `test-fleet --int8`, one QAT b8 step card vs CPU,
@@ -147,6 +155,11 @@ phase 9's inputs and phase 12's tree `DIR/fleet` (and their configs) on
 the CPU and stops: the JAX package's `test`, `vivo`, `score-bop`,
 `test-fleet` and `vivo-fleet` commands run on it for the reference
 recall and AR.
+
+`--int8-baseline OLD.cu` builds another version of
+`csrc/int8_conv.cu` with the same C interface and times both int8
+kernels against the current ones in turns (old, new, new, old) at
+upsample_2's shape.
 
 `--baseline OLD.cu` also builds another version of
 `csrc/epnp_minimal.cu` with the same C interface and times it against
@@ -185,6 +198,13 @@ CKPT = os.path.join(HERE, "trained", "rehearsal3_best.npz")
 LUT = os.path.join(HERE, "trained", "rehearsal3_lut.npz")
 SPHERE_RADIUS = 40.0      # the rehearsal object: a position-coded sphere
 TREE_FRAMES, TREE_SEED = 120, 3     # the runner phase's BOP tree
+# its frames whose rgb rows cycle through PNG filters 0-4 (every filter
+# decoded by every run over the tree); the others have Sub rows. The
+# cycle's Average and Paeth rows cost 157-257 ms a frame in Python
+# loops: with all 120 cycling, the host's decode was the time of every
+# run over the tree, and the whole script took 1226.0 s of its 1200 s
+# on an H100 80GB HBM3 at 700 W
+CYCLE_FRAMES = 12
 # the training phase: its split of the tree, the command's steps and log
 # cadence (3 log steps: 3 rolling checkpoints, 3 pose validations), the
 # batch of the card-vs-CPU step check. 150 steps (300 before phase 14),
@@ -365,6 +385,24 @@ def time_launches(fn, launches=100, repeats=5):
         b.record()
         b.synchronize()
         out.append(a.elapsed_time(b) / launches)
+    return out
+
+
+def clocks_under(fn, launches):
+    """nvidia-smi's SM clock, its maximum, the power draw and limit, read
+    while `launches` calls of `fn` queued beforehand run on the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(launches):
+        fn()
+    time.sleep(0.3)
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "power.limit", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60).stdout.strip()
+    torch.cuda.synchronize()
     return out
 
 
@@ -638,7 +676,8 @@ def uv_sphere(n_theta=260, n_phi=270, radius=SPHERE_RADIUS):
 def write_tree(root, n_frames=TREE_FRAMES, seed=TREE_SEED):
     """Write the runner phase's BOP tree under `root` with the port's
     own writers: lmo, object ape (id 1), `n_frames` 480x640 sphere
-    frames whose rgb rows cycle through PNG filters 0-4, masks from the
+    frames (rgb rows cycling through PNG filters 0-4 in the first
+    CYCLE_FRAMES, Sub rows in the rest), masks from the
     hit mask, depth (`write_depth`), scene_camera / scene_gt /
     scene_gt_info, the UV-sphere mesh (diameter 80), camera.json, the
     committed rehearsal LUT as
@@ -686,7 +725,7 @@ def write_tree(root, n_frames=TREE_FRAMES, seed=TREE_SEED):
     masks = hits.astype(np.uint8) * 255
     for im in range(n_frames):
         png.imwrite(os.path.join(scene, "rgb", f"{im:06d}.png"), frames[im],
-                    filters=cycle)
+                    filters=cycle if im < CYCLE_FRAMES else 1)
         for sub in ("mask", "mask_visib"):
             png.imwrite(os.path.join(scene, sub, f"{im:06d}_000000.png"),
                         masks[im])
@@ -912,9 +951,8 @@ def write_fleet_tree(src_root, root):
     _link_split(os.path.join(src, "test", "000001"),
                 os.path.join(ds, "test", "000001"), FLEET_FRAMES,
                 link_rgb=False)
-    # phase 7's frames again (the same seed), their rows written with the
-    # Sub filter: the cycle of filters 0-4 that phase 7 reads on purpose
-    # makes the host's PNG decode the time of every run over them
+    # phase 7's frames again (the same seed), every row written with the
+    # Sub filter
     from concurrent.futures import ThreadPoolExecutor
 
     from zebrapose_tpu_torch.data import png
@@ -3483,6 +3521,16 @@ INT8_EDGES = (
     ("1x1 map", 32, 1, 1, 512, 256, 1, 1, 0, 1, True, "bfloat16", False),
     ("all-zero input", 2, 16, 16, 256, 256, 3, 1, 1, 1, False, "float32",
      True),
+    ("partial spatial and Cout tiles: 3x3 Cin 272 -> 200 on 13x17", 3, 13,
+     17, 272, 200, 3, 1, 1, 1, True, "bfloat16", False),
+    ("Cin 1025 (v3's fuse) on the gather route", 2, 32, 32, 1025, 256, 1,
+     1, 0, 1, True, "bfloat16", False),
+    ("f32 output, partial tiles, odd Cout: 3x3 Cin 272 -> 201 on 13x17", 3,
+     13, 17, 272, 201, 3, 1, 1, 1, True, "float32", False),
+    ("1x1 Cin 64 -> 256 (ResNet50 Bottleneck; a box wider than C)", 4, 64,
+     64, 64, 256, 1, 1, 0, 1, False, "bfloat16", False),
+    ("1x1 stride 2 Cin 256 -> 512 (ResNet50 downsample), f32 output", 4, 64,
+     64, 256, 512, 1, 2, 0, 1, True, "float32", False),
 )
 # the QAT run of phase 14: steps from the committed checkpoint, one pose
 # validation at the end
@@ -3540,15 +3588,17 @@ def int8_gate_forward(forward8, convs, batch):
     that holds both kernels against their plain versions on the input
     the main path gives that conv (int8_gate), at the batch's own size.
     Returns (the convs gated, their distinct shapes, the largest error
-    of each kernel)."""
+    of each kernel, every conv's (x shape, weight shape, stride, pad,
+    dilation, bias) in the forward's order)."""
     import torch
 
     bsz = batch["image"].shape[0]
     err = {"quantize_act": 0.0, "int8_conv2d": 0.0}
-    shapes, seen, ran = [], set(), []
+    shapes, seen, ran, every, dtypes = [], set(), [], [], set()
 
     def gate(mod, inp, out, name):
         x = inp[0].permute(0, 2, 3, 1)
+        dtypes.add(str(x.dtype).replace("torch.", ""))
         key = (tuple(x.shape), tuple(mod.weight.shape), mod.stride[0],
                mod.padding[0], mod.dilation[0], mod.bias is not None)
         qe, ce = int8_gate(f"b{bsz} {name}", x, mod.weight,
@@ -3557,6 +3607,7 @@ def int8_gate_forward(forward8, convs, batch):
         err["quantize_act"] = max(err["quantize_act"], qe)
         err["int8_conv2d"] = max(err["int8_conv2d"], ce)
         ran.append(name)
+        every.append(key)
         if key not in seen:
             seen.add(key)
             shapes.append(list(key[0]) + [key[1][0], key[1][2]]
@@ -3574,20 +3625,138 @@ def int8_gate_forward(forward8, convs, batch):
     torch.cuda.empty_cache()
     check(len(ran) == len(convs), f"b{bsz}: {len(ran)} quantized convs ran, "
           f"not {len(convs)}")
-    log(f"[int8] kernel gates at b{bsz}: {len(ran)} quantized convs of the "
-        f"int8 forward ({len(shapes)} distinct shapes [N, H, W, Cin, Cout, "
+    log(f"[int8] kernel gates at b{bsz} ({', '.join(sorted(dtypes))}): "
+        f"{len(ran)} quantized convs of the int8 forward ({len(shapes)} distinct shapes [N, H, W, Cin, Cout, "
         f"k, stride, pad, dil]: {shapes}): quantize_act and int8_conv2d "
         f"bit-equal to their plain versions on each conv's own input")
-    return len(ran), shapes, err
+    return len(ran), shapes, err, every
 
 
-def int8_kernel_phase(dev, card, gates, peak_bw):
+def _conv_bound_ms(n, h, w, cin, cout, ks, stride, pad, dil, bias, peak_bw):
+    """(bound ms, "operations" or "bytes", ops) of one int8_conv2d: 2 M K
+    Cout operations at the int8 peak, or xq, wq, sw (and bias) read once
+    and the bf16 output written once at the memory rate."""
+    from zebrapose_tpu_torch.ops.int8_conv import out_size
+
+    ho = out_size(h, ks, stride, pad, dil)
+    wo = out_size(w, ks, stride, pad, dil)
+    m = n * ho * wo
+    ops = 2 * m * ks * ks * cin * cout
+    nbytes = (n * h * w * cin + cout * ks * ks * cin + cout * 4 * (
+        2 if bias else 1) + m * cout * 2)
+    b_ops, b_bytes = ops / INT8_PEAK_OPS * 1e3, nbytes / peak_bw * 1e3
+    return (max(b_ops, b_bytes), "operations" if b_ops >= b_bytes
+            else "bytes", ops)
+
+
+def int8_forward_sums(dev, card, every, peak_bw, g):
+    """Each int8 kernel's time summed over one forward's quantized convs
+    (`every`: int8_gate_forward's list for one batch), against the sum of
+    their bounds: every distinct conv shape timed once on random bf16
+    inputs of its shape (the kernels' time does not depend on the
+    values), counted as often as the forward runs it. Returns the
+    record."""
+    import torch
+
+    from zebrapose_tpu_torch.models.layers import quantize_weight
+    from zebrapose_tpu_torch.ops import int8_conv as k
+
+    mult = {}
+    for key in every:
+        mult[key] = mult.get(key, 0) + 1
+    tot = {name: {"ms": 0.0, "bound_ms": 0.0}
+           for name in ("quantize_act", "int8_conv2d")}
+    ops = elems = 0
+    rows = []
+    for (xs, ws, s, p, d, has_b), count in mult.items():
+        n, h, w, cin = xs
+        cout, ks = ws[0], ws[2]
+        x = torch.randn(n, h, w, cin, device=dev, generator=g,
+                        dtype=torch.bfloat16)
+        wq, sw = quantize_weight(torch.randn(cout, cin, ks, ks, device=dev,
+                                             generator=g))
+        wq = wq.to(torch.int8).permute(0, 2, 3, 1).contiguous()
+        bias = (torch.randn(cout, device=dev, generator=g) if has_b
+                else None)
+        xq, sx = k.quantize_act(x)
+        q_ms = stats(time_launches(lambda: k.quantize_act(x), launches=5,
+                                   repeats=3))["median"]
+        c_ms = stats(time_launches(
+            lambda: k.int8_conv2d(xq, wq, sx, sw, bias, s, p, d,
+                                  torch.bfloat16), launches=5,
+            repeats=3))["median"]
+        cb, _, c_ops = _conv_bound_ms(n, h, w, cin, cout, ks, s, p, d, has_b,
+                                      peak_bw)
+        qb = (x.numel() * 3 + 4) / peak_bw * 1e3
+        rows.append(dict(shape=[n, h, w, cin, cout, ks, s, p, d],
+                         count=count, quantize_ms=q_ms, quantize_bound_ms=qb,
+                         conv_ms=c_ms, conv_bound_ms=cb))
+        log(f"[int8]   b{n} [N, H, W, Cin, Cout, k, s, p, d] "
+            f"{rows[-1]['shape']} x{count}: quantize_act {q_ms:.4f} ms "
+            f"({100 * qb / q_ms:.1f}% of its bound), int8_conv2d "
+            f"{c_ms:.4f} ms ({100 * cb / c_ms:.1f}%)")
+        tot["quantize_act"]["ms"] += count * q_ms
+        tot["quantize_act"]["bound_ms"] += count * qb
+        tot["int8_conv2d"]["ms"] += count * c_ms
+        tot["int8_conv2d"]["bound_ms"] += count * cb
+        ops += count * c_ops
+        elems += count * x.numel()
+        del x, xq, wq
+    torch.cuda.empty_cache()
+    for name, t in tot.items():
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    bsz = every[0][0][0]
+    log(f"[int8] one b{bsz} forward's {len(every)} quantized convs "
+        f"({len(mult)} distinct shapes, {ops / 1e12:.2f} TOP, "
+        f"{elems / 1e9:.3f} G activation elements): int8_conv2d "
+        f"{tot['int8_conv2d']['ms']:.3f} ms against a summed bound of "
+        f"{tot['int8_conv2d']['bound_ms']:.3f} ms "
+        f"({100 * tot['int8_conv2d']['share_of_bound']:.1f}%), "
+        f"quantize_act {tot['quantize_act']['ms']:.3f} ms against "
+        f"{tot['quantize_act']['bound_ms']:.3f} ms "
+        f"({100 * tot['quantize_act']['share_of_bound']:.1f}%) on {card}")
+    return dict(tot, convs=len(every), distinct=len(mult), tera_ops=ops / 1e12,
+                giga_elements=elems / 1e9, by_shape=rows)
+
+
+def build_int8_baseline(path):
+    """Compile another version of csrc/int8_conv.cu, with the same C
+    interface, with the port's flags; its two entry points as functions
+    of (x, xq, sx, stream) and (xq, wq, sx, sw, y, batch, stream) for
+    upsample_2's 3x3 256 -> 256 conv at 128² in bf16 on the wgmma
+    route."""
+    from zebrapose_tpu_torch.ops import int8_conv as k
+
+    import torch
+
+    lib = k.bind(ctypes.CDLL(str(_build_other(path, "int8_baseline"))))
+    scratch = torch.empty(k._SCRATCH, dtype=torch.float32, device="cuda")
+
+    def quantize(x, xq, sx, stream):
+        return lib.zp_quantize_act(x.data_ptr(), 1, x.numel(),
+                                   scratch.data_ptr(), k._SCRATCH,
+                                   sx.data_ptr(), xq.data_ptr(), stream)
+
+    def conv(xq, wq, sx, sw, y, bsz, stream):
+        return lib.zp_int8_conv2d(
+            xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(), None,
+            y.data_ptr(), 1, bsz, 128, 128, 256, 256, 3, 3, 1, 1, 1, 128,
+            128, k.ROUTES.index("wgmma"), *k.tile_geometry(128, 128), stream)
+
+    return quantize, conv
+
+
+def int8_kernel_phase(dev, card, gates, peak_bw, baseline=None):
     """Phase 14, item 1: the gates on INT8_EDGES, beside those int8_main
     held on every quantized conv of the main path at b32 and b256
-    (`gates`: int8_gate_forward's results by batch); then each kernel's
-    time at the hot shapes (upsample_2's convs at 128², b32 and b256)
-    against its bound, its plain version and cuDNN's bf16 convolution.
-    Returns the record."""
+    (`gates`: int8_gate_forward's results by batch), each edge set's
+    route as `conv_route` says and counted; then each kernel's time at
+    the hot shapes (upsample_2's convs at 128², b32 and b256) against
+    its bound, its plain version (b32) and cuDNN's bf16 convolution, and
+    summed over a forward's quantized convs (int8_forward_sums). With
+    `baseline` (build_int8_baseline's entry points) both kernels of that
+    build are timed against these in turns (old, new, new, old) at the
+    hot shapes. Returns the record."""
     import torch
     import torch.nn.functional as F
 
@@ -3597,7 +3766,7 @@ def int8_kernel_phase(dev, card, gates, peak_bw):
     rec = {"shapes": {f"b{b}": g[1] for b, g in gates.items()},
            "gated_convs": {f"b{b}": g[0] for b, g in gates.items()},
            "edges": {}}
-    err = {name: max(g[2][name] for g in gates.values())
+    err = {name: max([g[2][name] for g in gates.values()] + [0.0])
            for name in ("quantize_act", "int8_conv2d")}
     g = torch.Generator(device=dev).manual_seed(14)
     for (what, n, h, w, cin, cout, ks, s, p, d, b, dt, zero) in INT8_EDGES:
@@ -3606,90 +3775,119 @@ def int8_kernel_phase(dev, card, gates, peak_bw):
         x = x.to(getattr(torch, dt))
         weight = torch.randn(cout, cin, ks, ks, device=dev, generator=g)
         bias = (torch.randn(cout, device=dev, generator=g) if b else None)
+        before = dict(k.int8_conv2d.route_launches)
         qe, ce = int8_gate(what, x, weight, bias, s, p, d)
+        route = k.conv_route(cin, s)
+        ran = {r: v - before[r] for r, v in
+               k.int8_conv2d.route_launches.items()}
+        check(ran[route] == 1 and sum(ran.values()) == 1,
+              f"{what}: routes launched {ran}, not one {route}")
         err["quantize_act"] = max(err["quantize_act"], qe)
         err["int8_conv2d"] = max(err["int8_conv2d"], ce)
-        rec["edges"][what] = "bit-equal"
-    log(f"[int8] edge sets {[e[0] for e in INT8_EDGES]}: bit-equal")
+        rec["edges"][what] = {"route": route, "result": "bit-equal"}
+    log(f"[int8] edge sets "
+        f"{[(e, v['route']) for e, v in rec['edges'].items()]}: bit-equal, "
+        f"each on its route")
 
     # time at the hot shape: upsample_2's 3x3 256 -> 256 convs at 128²
     timing = {"quantize_act": {}, "int8_conv2d": {}}
+    ab = {}
     weight = torch.randn(256, 256, 3, 3, device=dev, generator=g)
     wq, sw = quantize_weight(weight)
     wq = wq.to(torch.int8).permute(0, 2, 3, 1).contiguous()
     wbf = weight.to(torch.bfloat16).to(memory_format=torch.channels_last)
+    stream = torch.cuda.current_stream().cuda_stream
     for bsz in (32, 256):
         x = torch.randn(bsz, 128, 128, 256, device=dev, generator=g,
                         dtype=torch.bfloat16)
         xq, sx = k.quantize_act(x)
         n = x.numel()
         m, kk = bsz * 128 * 128, 9 * 256
-        conv_ops = 2 * m * kk * 256
-        conv_bytes = xq.numel() + wq.numel() + 256 * 4 * 2 + m * 256 * 2
+        c_bound, c_by, _ = _conv_bound_ms(bsz, 128, 128, 256, 256, 3, 1, 1,
+                                          1, False, peak_bw)
         q_bytes = n * 2 + n + 4
         cases = {
             "quantize_act": (lambda: k.quantize_act(x),
                              lambda: k.quantize_act_reference(x), None,
-                             q_bytes / peak_bw * 1e3, 2 * n / 1e12),
+                             q_bytes / peak_bw * 1e3, "bytes"),
             "int8_conv2d": (
                 lambda: k.int8_conv2d(xq, wq, sx, sw, None, 1, 1, 1,
                                       torch.bfloat16),
                 lambda: k.int8_conv2d_reference(xq, wq, sx, sw, None, 1,
                                                 1, 1, torch.bfloat16),
                 lambda: F.conv2d(x.permute(0, 3, 1, 2), wbf, None, 1, 1),
-                conv_bytes / peak_bw * 1e3,
-                conv_ops / INT8_PEAK_OPS * 1e3)}
-        for name, (fn, plain, lib, b_bytes, b_ops) in cases.items():
-            runs = time_launches(fn, launches=10 if bsz == 256 else 20,
-                                 repeats=3)
-            p_ms = time_ms(plain, iters=1 if bsz == 256 else 2,
-                           warmup=1)[0]
+                c_bound, c_by)}
+        if baseline is not None:
+            oq, oc = baseline
+            xq_o = torch.empty_like(xq)
+            sx_o = torch.empty_like(sx)
+            y_o = torch.empty(bsz, 128, 128, 256, device=dev,
+                              dtype=torch.bfloat16)
+            olds = {
+                "quantize_act": lambda: oq(x, xq_o, sx_o, stream),
+                "int8_conv2d": lambda: oc(xq, wq, sx, sw, y_o, bsz, stream)}
+            olds["quantize_act"]()
+            olds["int8_conv2d"]()
+            torch.cuda.synchronize()
+            check(torch.equal(xq_o, xq) and torch.equal(sx_o, sx)
+                  and torch.equal(y_o, cases["int8_conv2d"][0]()),
+                  f"b{bsz}: the baseline build's results differ")
+        for name, (fn, plain, lib, b_ms, b_by) in cases.items():
+            launches = 10 if bsz == 256 else 20
+            if baseline is not None:
+                runs = {"old": [], "new": []}
+                for which in ("old", "new", "new", "old"):
+                    runs[which] += time_launches(
+                        olds[name] if which == "old" else fn,
+                        launches=launches, repeats=3)
+                ab.setdefault(name, {})[bsz] = {
+                    w_: stats(v) for w_, v in runs.items()}
+                o, nw = ab[name][bsz]["old"], ab[name][bsz]["new"]
+                log(f"[ab] {name} b{bsz}: old {o['median']:.4f} ms (min "
+                    f"{o['min']:.4f}, max {o['max']:.4f}), new "
+                    f"{nw['median']:.4f} ms (min {nw['min']:.4f}, max "
+                    f"{nw['max']:.4f}): {o['median'] / nw['median']:.2f}x, "
+                    f"turns old new new old, on {card}")
+                runs = runs["new"]
+            else:
+                runs = time_launches(fn, launches=launches, repeats=3)
+            # the plain versions at b32 only: b256's plain convolution
+            # alone took seconds
+            p_ms = (time_ms(plain, iters=2, warmup=1)[0] if bsz == 32
+                    else None)
             l_ms = None if lib is None else time_ms(lib, iters=10,
                                                     warmup=2)[0]
             st = stats(runs)
             timing[name][bsz] = dict(
                 ms=st["median"], ms_min=st["min"], ms_max=st["max"],
-                plain_ms=p_ms, library_ms=l_ms,
-                bound_ms=max(b_bytes, b_ops),
-                bound_by="operations" if b_ops >= b_bytes else "bytes")
+                plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
             t = timing[name][bsz]
             log(f"[int8] {name} at upsample_2's shape, b{bsz}: "
                 f"{t['ms']:.4f} ms (min {t['ms_min']:.4f}, max "
                 f"{t['ms_max']:.4f}), bound {t['bound_ms']:.4f} ms "
                 f"({t['bound_by']}; {100 * t['bound_ms'] / t['ms']:.1f}% "
-                f"of it), plain {p_ms:.2f} ms, library "
+                f"of it), plain "
+                + ("not timed" if p_ms is None else f"{p_ms:.2f} ms")
+                + ", library "
                 + ("none (no PyTorch call computes a symmetric per-tensor "
                    "int8 quantization)" if l_ms is None else
                    f"{l_ms:.4f} ms (cuDNN bf16 F.conv2d, channels-last)")
                 + f" on {card}")
-        if bsz == 32:
-            # torch._int_mm (int8 GEMM, int32 sums) over an im2col of xq,
-            # where the im2col fits: the GEMM's time alone, then the copy
-            xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
-
-            def im2col():
-                return xp.unfold(1, 3, 1).unfold(2, 3, 1).permute(
-                    0, 1, 2, 4, 5, 3).reshape(m, kk)
-
-            a = im2col()
-            bt = wq.reshape(256, kk).t()
-            acc = torch._int_mm(a, bt)
-            ref = k.int8_accumulate(xq, wq, 1, 1, 1).permute(
-                0, 2, 3, 1).reshape(m, 256)
-            check(torch.equal(acc, ref), "_int_mm over im2col differs from "
-                  "the exact int32 sums")
-            mm = time_ms(lambda: torch._int_mm(a, bt), iters=10,
-                         warmup=2)[0]
-            col = time_ms(im2col, iters=5, warmup=1)[0]
-            timing["int8_conv2d"][bsz].update(intmm_ms=mm, im2col_ms=col,
-                                              im2col_gib=a.numel() / 2**30)
-            log(f"[int8] torch._int_mm over an im2col (b32, "
-                f"{a.numel() / 2**30:.2f} GiB of int8): the GEMM "
-                f"{mm:.4f} ms, the im2col copy {col:.4f} ms on {card}")
-            del a, acc, ref, xp
+        if bsz == 256:
+            # the clock the card holds under the conv: the bound assumes
+            # the int8 peak's 1,979 TOP/s
+            rec["clocks_under_conv"] = clocks_under(
+                cases["int8_conv2d"][0], 600)
+            log(f"[int8] while int8_conv2d runs at b256: SM clock, max SM "
+                f"clock, power draw, limit: {rec['clocks_under_conv']}")
         del x, xq
         torch.cuda.empty_cache()
+    rec["forward_sums"] = {
+        f"b{b}": int8_forward_sums(dev, card, gt[3], peak_bw, g)
+        for b, gt in gates.items()}
     rec.update(max_abs_err=err, timing=timing)
+    if ab:
+        rec["ab"] = ab
     return rec
 
 
@@ -3698,8 +3896,11 @@ def int8_main(dev, card, sd, n_bits, feeds, step_for, step, gen, bf16_model):
     int8 model in bf16 through make_eval_step at b32 and b256, with the
     int8 kernels' counts set to 0 just before and read just after (the
     kernels' `launches`); before that, the kernel gates on every quantized
-    conv's input at b32 and at b256 (int8_gate_forward); crops/s against the bf16 step in turns; hard mask and
-    code agreement with the bf16 forward. Returns (record, the gates)."""
+    conv's input at b32 and at b256 (int8_gate_forward), and at b32 in
+    the f32 model that `test --int8`, `vivo --int8`, `test-fleet --int8`
+    and the --f32 serving blob run (the f32 epilogue); crops/s against
+    the bf16 step in turns; hard mask and code agreement with the bf16
+    forward. Returns (record, the bf16 gates)."""
     import torch
 
     from zebrapose_tpu_torch.data.pipeline import preprocess_batch
@@ -3734,9 +3935,17 @@ def int8_main(dev, card, sd, n_bits, feeds, step_for, step, gen, bf16_model):
         forward8, convs, preprocess_batch(feeds[bsz][0], 256, 128,
                                           include_gt=False))
         for bsz in (32, 256)}
+    m8f = ZebraPoseNet(binary_code_length=n_bits, variant="v2",
+                       quant=True).eval()
+    m8f.load_state_dict(sd, strict=True)
+    m8f = m8f.to(dev).to(memory_format=torch.channels_last)
+    n_f32, _, err_f32, _ = int8_gate_forward(
+        lambda b: m8f(b["image"]), quantized_convs(m8f),
+        preprocess_batch(feeds[32][0], 256, 128, include_gt=False))
+    del m8f
+    torch.cuda.empty_cache()
 
-    int8_conv.quantize_act.launches = 0          # the int8 main path's run
-    int8_conv.int8_conv2d.launches = 0
+    int8_conv.zero_counts()                      # the int8 main path's run
     outs = {}
     for bsz in (32, 256):
         before = int8_conv.int8_conv2d.launches
@@ -3747,9 +3956,17 @@ def int8_main(dev, card, sd, n_bits, feeds, step_for, step, gen, bf16_model):
               f"{int8_conv.int8_conv2d.launches - before} times, not {n_q}")
     launches = {"quantize_act": int8_conv.quantize_act.launches,
                 "int8_conv2d": int8_conv.int8_conv2d.launches}
+    routes = dict(int8_conv.int8_conv2d.route_launches)
     check(launches["quantize_act"] == launches["int8_conv2d"] == 2 * n_q,
           f"int8 kernel launches {launches}, not {2 * n_q} each")
-    rec = {"quantized_convs": n_q, "launches": launches, "card": card}
+    check(sum(routes.values()) == 2 * n_q and routes["wgmma"] == 2 * n_q,
+          f"int8_conv2d launches by route {routes}: not every conv of the "
+          f"two forwards ({2 * n_q}) on the wgmma route")
+    log(f"[int8] [main] --int8 b32 + b256: int8_conv2d launches by route "
+        f"{routes} ({n_q} a forward, all on wgmma)")
+    rec = {"quantized_convs": n_q, "launches": launches,
+           "route_launches": routes, "card": card,
+           "gates_f32_b32": {"convs": n_f32, "max_abs_err": err_f32}}
     for bsz, out in outs.items():
         R, t, ok, n_in, vis, _ = (x.cpu().numpy() for x in out)
         check(np.isfinite(R).all() and np.isfinite(t).all()
@@ -3798,8 +4015,7 @@ def _int8_counts():
 def _zero_int8_counts():
     from zebrapose_tpu_torch.ops import int8_conv
 
-    int8_conv.quantize_act.launches = 0
-    int8_conv.int8_conv2d.launches = 0
+    int8_conv.zero_counts()
 
 
 def _metrics_of(run_dir):
@@ -4143,22 +4359,28 @@ def int8_phase(dev, card, tmp, runner, n_q):
     return rec
 
 
-def build_baseline(path):
-    """Compile another version of csrc/epnp_minimal.cu with the port's
-    flags into the build directory; its zp_epnp_minimal entry point."""
+def _build_other(path, stem):
+    """Compile another version of a csrc/*.cu file with the port's flags
+    into the build directory; the library's path."""
     from zebrapose_tpu_torch.ops import _build
 
     src = os.path.abspath(path)
     digest = hashlib.sha256(open(src, "rb").read()
                             + " ".join(_build.NVCC_FLAGS).encode())
-    out = _build.BUILD_DIR / f"libbaseline_{digest.hexdigest()[:16]}.so"
+    out = _build.BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
     if not out.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
                               str(out), src], capture_output=True, text=True)
-        check(res.returncode == 0, "baseline build failed:\n" + res.stdout
+        check(res.returncode == 0, f"{stem} build failed:\n" + res.stdout
               + res.stderr)
-    fn = ctypes.CDLL(str(out)).zp_epnp_minimal
+    return out
+
+
+def build_baseline(path):
+    """Compile another version of csrc/epnp_minimal.cu with the port's
+    flags into the build directory; its zp_epnp_minimal entry point."""
+    fn = ctypes.CDLL(str(_build_other(path, "baseline"))).zp_epnp_minimal
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -4176,6 +4398,10 @@ def main(argv=None) -> int:
                     help="write the runner and training phases' BOP tree "
                     "(and the configs DIR/lmo_ape.txt, "
                     "DIR/lmo_ape_train.txt) on the CPU, and stop")
+    ap.add_argument("--int8-baseline", metavar="OLD.cu",
+                    help="another version of csrc/int8_conv.cu with the "
+                    "same C interface to time against the current one in "
+                    "phase 14")
     opts = ap.parse_args(argv)
     if opts.write_tree:
         sys.path.insert(0, HERE)
@@ -4247,13 +4473,19 @@ def main(argv=None) -> int:
         f"threads each) a block, {occ['blocks_per_sm']} blocks "
         f"({32 * occ['blocks_per_sm']} solves) resident per SM")
     from zebrapose_tpu_torch.ops import int8_conv
-    occ8 = int8_conv.occupancy()
-    log(f"[build] int8_conv_kernel: {occ8['registers']} registers, "
-        f"{occ8['local_bytes']} B local, {occ8['smem_per_block']} B shared "
-        f"memory and {occ8['threads_per_block']} threads (a 128 x 128 "
-        f"output tile) a block, {occ8['blocks_per_sm']} blocks resident "
-        "per SM")
+    occ8 = {r: int8_conv.occupancy(r) for r in int8_conv.ROUTES}
+    for r, tile in (("wgmma", "128 pixels x 256 channels, 2 consumer "
+                              "warpgroups and a TMA warp"),
+                    ("gather", "128 x 128")):
+        o = occ8[r]
+        log(f"[build] int8_conv2d {r} kernel: {o['registers']} registers, "
+            f"{o['local_bytes']} B local (spills), {o['smem_per_block']} B "
+            f"static and {o['dynamic_smem']} B dynamic shared memory, "
+            f"{o['threads_per_block']} threads ({tile}) a block, "
+            f"{o['blocks_per_sm']} blocks resident per SM")
     baseline = (build_baseline(opts.baseline) if opts.baseline else None)
+    int8_base = (build_int8_baseline(opts.int8_baseline)
+                 if opts.int8_baseline else None)
 
     # ---- 3. kernel vs plain version on minimal sets --------------------
     rng = np.random.default_rng(5)
@@ -4554,7 +4786,7 @@ def main(argv=None) -> int:
     # 1-2: here, where the main path's feeds and inputs are) -------------
     int8_rec, gates = int8_main(dev, card, sd, n_bits, feeds, step_for,
                                 step, gen, forward)
-    int8_k = int8_kernel_phase(dev, card, gates, peak_bw)
+    int8_k = int8_kernel_phase(dev, card, gates, peak_bw, int8_base)
     torch.cuda.empty_cache()
 
     # ---- 6. kernel timing vs plain version vs bound --------------------
@@ -4676,12 +4908,20 @@ def main(argv=None) -> int:
             "source": "zebrapose_tpu_torch/csrc/int8_conv.cu",
             "replaces": f"zebrapose_tpu/models/layers.py:{line}",
             "launches": int8_rec["launches"][kname],
-            "max_abs_err": int8_k["max_abs_err"][kname],
+            "max_abs_err": max(
+                int8_k["max_abs_err"][kname],
+                int8_rec["gates_f32_b32"]["max_abs_err"][kname]),
             "ms": kt[32]["ms"], "plain_ms": kt[32]["plain_ms"],
             "bound_ms": kt[32]["bound_ms"], "bound_by": kt[32]["bound_by"],
             "library_ms": kt[32]["library_ms"],
             "shape": "upsample_2's 3x3 256->256 conv at 128², b32",
             "status": "ok", "by_batch": {str(b): v for b, v in kt.items()},
+            "forward_sums": {b: v[kname] for b, v in
+                             int8_k["forward_sums"].items()},
+            "route_launches": (int8_rec["route_launches"]
+                               if kname == "int8_conv2d" else None),
+            "occupancy": occ8 if kname == "int8_conv2d" else None,
+            "ab": int8_k.get("ab", {}).get(kname),
             "launches_by_path": {"main": int8_rec["launches"][kname],
                                  **{k: v.get(kname) for k, v in
                                     int8["launches"].items()}},

@@ -16,10 +16,18 @@ sm_90a; the source note gives the design and what bounds each):
     `out_dtype` (f32 or bf16), acc the int32 sum of the convolution with
     zero padding; square stride, padding and dilation.
 
+`int8_conv2d` has two routes, chosen by shape in `conv_route`: "wgmma"
+(Hopper's wgmma on tiles that TMA loads, every conv of the networks) and
+"gather" (a byte-gathering kernel for what a TMA tensor map cannot
+describe: Cin % 16 != 0 or a stride above 2). `tile_geometry` gives the
+wgmma route's tile of output pixels, which the kernel loads one tap's
+TMA box at a time (`csrc/int8_conv.cu`).
+
 Both are `torch.library` ops (`zebrapose::quantize_act`,
 `zebrapose::int8_conv2d`, no argument mutated): the CUDA implementation
 launches the kernel through ctypes and counts the launch on the wrapper
-(`quantize_act.launches`, `int8_conv2d.launches`), the CPU
+(`quantize_act.launches`, `int8_conv2d.launches`, and by route
+`int8_conv2d.route_launches`), the CPU
 implementation is the plain version, and the Meta implementation gives
 the shapes, so `torch.export` traces an int8 model with one node per
 call. Importing this module registers the ops; a process that loads an
@@ -86,37 +94,86 @@ def int8_conv2d_reference(xq: torch.Tensor, wq: torch.Tensor,
     return y.to(out_dtype).permute(0, 2, 3, 1).contiguous()
 
 
+ROUTES = ("wgmma", "gather")
+TILE_PIXELS = 128        # output pixels a wgmma tile (two m64 halves)
+
+
+def conv_route(cin: int, stride: int) -> str:
+    """The kernel that computes a convolution: "wgmma" where a TMA
+    tensor map can describe xq and wq (16-byte strides, so Cin % 16 ==
+    0) and the box of a tile's strided rows fits TMA's 256-element box
+    (stride <= 2), else "gather"."""
+    return "wgmma" if cin % 16 == 0 and stride <= 2 else "gather"
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+def tile_geometry(wo: int, ho: int) -> Tuple[int, int, int]:
+    """The wgmma route's tile of TILE_PIXELS output pixels as (TW, TH,
+    TN): TW columns of TH rows of TN images, powers of two, as wide as
+    the output map allows, so that few of a tile's pixels fall outside
+    it."""
+    tw = min(TILE_PIXELS, _pow2_at_least(wo))
+    th = min(TILE_PIXELS // tw, _pow2_at_least(ho))
+    return tw, th, TILE_PIXELS // (tw * th)
+
+
+# the max pass's scratch: one float a block, at most this many blocks
+_SCRATCH = 4096
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares a build of csrc/int8_conv.cu's two entry points."""
+    lib.zp_quantize_act.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.zp_quantize_act.restype = ctypes.c_int
+    lib.zp_int8_conv2d.argtypes = [ctypes.c_void_p] * 6 + \
+        [ctypes.c_int] * 17 + [ctypes.c_void_p]
+    lib.zp_int8_conv2d.restype = ctypes.c_int
+    return lib
+
+
 def _lib():
     from zebrapose_tpu_torch.ops import _build
 
     lib = _build.load("int8_conv")
     if lib.zp_int8_conv2d.argtypes is None:
-        lib.zp_quantize_act.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]
-        lib.zp_quantize_act.restype = ctypes.c_int
-        lib.zp_int8_conv2d.argtypes = [ctypes.c_void_p] * 6 + \
-            [ctypes.c_int] * 13 + [ctypes.c_void_p]
-        lib.zp_int8_conv2d.restype = ctypes.c_int
+        bind(lib)
     return lib
+
+
+# the wgmma route's own error codes (csrc/int8_conv.cu), beside CUDA's
+_ERRORS = {10001: "no cuTensorMapEncodeTiled in the driver",
+           10002: "xq or wq is not 16-byte aligned"}
+
+
+def _conv_error(rc: int) -> str:
+    if rc in _ERRORS:
+        return _ERRORS[rc]
+    if rc >= 20000:
+        return f"cuTensorMapEncodeTiled refused a tensor map: CUresult " \
+               f"{rc - 20000}"
+    return f"CUDA error {rc}"
 
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _quantize_act_cuda(x: torch.Tensor):
-    """The op's CUDA implementation: one launch of the quantizer (its
-    max pass and its quantizing pass)."""
+    """The op's CUDA implementation: one launch of the quantizer (two
+    kernels: its max pass and its quantizing pass)."""
     if x.dtype not in _KERNEL_DTYPES or not x.is_contiguous():
         raise ValueError(f"quantize_act takes a contiguous f32 or bf16 "
                          f"tensor, not {x.dtype} with strides {x.stride()}")
     xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     sx = torch.empty(1, dtype=torch.float32, device=x.device)
-    scratch = torch.empty(1, dtype=torch.int32, device=x.device)
+    scratch = torch.empty(_SCRATCH, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib().zp_quantize_act(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                                x.numel(), scratch.data_ptr(),
+                                x.numel(), scratch.data_ptr(), _SCRATCH,
                                 sx.data_ptr(), xq.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"zp_quantize_act launch failed: CUDA error {rc}")
@@ -141,7 +198,7 @@ def _conv_shapes(xq, wq, stride, padding, dilation):
 def _int8_conv2d_cuda(xq, wq, sx, sw, bias, stride, padding, dilation,
                       out_dtype):
     """The op's CUDA implementation: one launch of the implicit-GEMM
-    convolution."""
+    convolution on the route `conv_route` gives."""
     for name, t, dtype in (("xq", xq, torch.int8), ("wq", wq, torch.int8),
                            ("sx", sx, torch.float32),
                            ("sw", sw, torch.float32),
@@ -164,15 +221,20 @@ def _int8_conv2d_cuda(xq, wq, sx, sw, bias, stride, padding, dilation,
     out = torch.empty(shape, dtype=out_dtype, device=xq.device)
     if out.numel() == 0:
         return out
+    route = conv_route(c, stride)
+    tw, th, tn = tile_geometry(shape[2], shape[1])
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     rc = _lib().zp_int8_conv2d(
         xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.bfloat16), n, h, w, c, cout, kh, kw, stride,
-        padding, dilation, shape[1], shape[2], stream)
+        padding, dilation, shape[1], shape[2], ROUTES.index(route), tw, th,
+        tn, stream)
     if rc != 0:
-        raise RuntimeError(f"zp_int8_conv2d launch failed: CUDA error {rc}")
+        raise RuntimeError(f"zp_int8_conv2d ({route}) launch failed: "
+                           f"{_conv_error(rc)}")
     int8_conv2d.launches += 1
+    int8_conv2d.route_launches[route] += 1
     return out
 
 
@@ -228,17 +290,27 @@ def int8_conv2d(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
 
 
 int8_conv2d.launches = 0
+int8_conv2d.route_launches = dict.fromkeys(ROUTES, 0)
 
 
-def occupancy() -> dict:
-    """The convolution kernel's resources as the CUDA runtime reports
-    them (see `ops/pnp_kernel.py::occupancy`)."""
+def zero_counts() -> None:
+    """Sets every launch count of both ops to 0."""
+    quantize_act.launches = 0
+    int8_conv2d.launches = 0
+    int8_conv2d.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def occupancy(route: str = "wgmma") -> dict:
+    """A route's convolution kernel (bf16 output) and its resources as
+    the CUDA runtime reports them (see `ops/pnp_kernel.py::occupancy`);
+    `dynamic_smem` is the shared memory it is launched with."""
     fn = _lib().zp_int8_conv2d_occupancy
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 5)()
-    rc = fn(out)
+    out = (ctypes.c_int * 6)()
+    rc = fn(ROUTES.index(route), out)
     if rc != 0:
         raise RuntimeError(f"zp_int8_conv2d_occupancy: CUDA error {rc}")
     return dict(zip(("blocks_per_sm", "threads_per_block",
-                     "smem_per_block", "registers", "local_bytes"), out))
+                     "smem_per_block", "registers", "local_bytes",
+                     "dynamic_smem"), out))
