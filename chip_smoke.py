@@ -1,5 +1,6 @@
 """Drive the PyTorch port's inference, training, BOP, data-preparation,
-refinement, model-family, fleet and serving paths on one card.
+refinement, model-family, fleet, serving, int8 and CLI-tool paths on one
+card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline OLD.cu --baseline-intrinsics fxfycxcy
@@ -37,12 +38,12 @@ check exits non-zero. Phases:
                  b8 train step on the card against the CPU (f32, TF32
                  off, the committed weights, injected augmentation);
                  `python -m zebrapose_tpu_torch train` (cli.main, in this
-                 process) from scratch in bf16 at b32, 150 steps with pose
+                 process) from scratch in bf16 at b32, 100 steps with pose
                  validation every 50 (the kernel's launches counted),
                  the loss's fall, the checkpoints, `test` on the best
-                 one, a resume for 10 steps; ms a step (bf16, f32, and
-                 streaming from PNG), the share spent waiting for a
-                 batch, peak device memory
+                 one, a resume for 10 steps; ms a step from memory (bf16,
+                 f32; streaming from PNG is phase 15's), the share spent
+                 waiting for a batch, peak device memory
   9. bop         the BOP-challenge path over phase 7's tree, which also
                  holds analytic depth, a BOP19 target list and ~190
                  synthetic detections (duplicates, background boxes, one
@@ -149,6 +150,24 @@ check exits non-zero. Phases:
                  --int8` (--f32 b32 served against `test --int8`; a bf16
                  symbolic blob: its recall, its graph's int8 nodes, and
                  a lone crop against the live step)
+ 15. cli         the rest of the CLI and the training input modes, over
+                 the trees of phases 7, 8 and 12: `visualize` on a frame
+                 phase 7 solved (its four PNGs; its metrics against
+                 run_test(frame=) at batch 1; each PNG against the set
+                 the host rebuilds from the step's masks, codes and
+                 poses); `test --debug` with refine = True over 16
+                 frames (16 artifact sets, the refiner's frames, the CSV
+                 byte-equal to the run without --debug); `test-fleet
+                 --debug` (debug/ape/, debug/can/); `export-ckpt` of the
+                 committed .npz and of phase 8's .pth, `test` on each
+                 (strict loads; the .npz's export writes `test`'s CSV on
+                 the .npz byte for byte); `model-cost` on the card
+                 against the CPU's count; `train --input_mode stream |
+                 prefetch | device_cache` in bf16 at b32 from the same
+                 init: the first batch equal and the first loss within
+                 1e-5 of stream's on the same draws, prefetch's feeds
+                 equal to its inner iterator's, then 30 steps each (ms
+                 a step, the wait share, peak memory, the cache's bytes)
 
 `--write-tree DIR` writes phase 7's tree with phase 8's training split,
 phase 9's inputs and phase 12's tree `DIR/fleet` (and their configs) on
@@ -206,13 +225,14 @@ TREE_FRAMES, TREE_SEED = 120, 3     # the runner phase's BOP tree
 # on an H100 80GB HBM3 at 700 W
 CYCLE_FRAMES = 12
 # the training phase: its split of the tree, the command's steps and log
-# cadence (3 log steps: 3 rolling checkpoints, 3 pose validations), the
-# batch of the card-vs-CPU step check. 150 steps (300 before phase 14),
-# with the families' 20 below (40 before), keep the whole script inside
-# TIME_LIMIT_S: with 300 and 40 it took 1130.8 s of its 1200 s on an
-# H100 80GB HBM3 at 700 W, and runs of one tree vary by up to 170 s
+# cadence (2 log steps: 2 pose validations; the resume's checkpoint makes
+# the third rolling one), the batch of the card-vs-CPU step check. 100
+# steps (300 before phase 14, 150 before phase 15), with the families'
+# 20 below (40 before), keep the whole script inside TIME_LIMIT_S: with
+# 300 and 40 it took 1130.8 s of its 1200 s on an H100 80GB HBM3 at
+# 700 W, and runs of one tree vary by up to 280 s
 TRAIN_FRAMES, TRAIN_SEED = 160, 4
-TRAIN_STEPS, TRAIN_LOG_FREQ, TRAIN_BATCH = 150, 50, 32
+TRAIN_STEPS, TRAIN_LOG_FREQ, TRAIN_BATCH = 100, 50, 32
 STEP_CHECK_BATCH = 8
 # that step's gates, card vs CPU: loss_total and grad_norm relative, the
 # BN running statistics relative to max(1, |value|), the histogram
@@ -1257,6 +1277,7 @@ def step_check(dev, card, cfg, root, quant=False):
 
     from zebrapose_tpu_torch.data import bop_io
     from zebrapose_tpu_torch.data.pipeline import (
+        FEED_KEYS,
         CropDatasetHost,
         preprocess_batch,
     )
@@ -1287,7 +1308,7 @@ def step_check(dev, card, cfg, root, quant=False):
         state.histogram = hist0.to(d)
         batch = preprocess_batch(
             {k: torch.as_tensor(raw[k]).to(d) for k in
-             trainer._FEED_KEYS}, crop_img=256, crop_gt=128,
+             FEED_KEYS}, crop_img=256, crop_gt=128,
             is_train=True, draws=draws.to(d))
         if noise_seed is not None:
             noise = torch.randn(batch["image"].shape, generator=torch
@@ -1430,7 +1451,8 @@ def train_phase(dev, card, tmp):
     check(n_val >= 2, "pose validation ran fewer than twice")
     check(launches >= n_val * val_batches,
           "validation did not launch the EPnP kernel on every batch")
-    check(len(rolling) == 3, "not 3 rolling checkpoints")
+    check(len(rolling) == min(3, TRAIN_STEPS // TRAIN_LOG_FREQ),
+          f"{len(rolling)} rolling checkpoints")
     check(len(best) == 1 or max(recalls) == 0.0,
           "a validation raised recall but no best checkpoint was kept")
     rec.update(wall_s=wall, launches=launches, losses_first20=first,
@@ -1481,21 +1503,20 @@ def train_phase(dev, card, tmp):
         f"{steps[-1]}, rolling {sorted(os.listdir(steps_dir))}")
 
     # the step alone: frames collated once and served from memory, bf16
-    # and f32 (PyTorch's default TF32: cuDNN on, matmul off); then the
-    # stream of frames read and decoded per draw
+    # and f32 (PyTorch's default TF32: cuDNN on, matmul off). The stream
+    # of frames read and decoded per draw is timed in phase 15, beside
+    # the other input modes.
     rec["timed"] = {}
-    for name, bf16, cache in (("bf16", True, True), ("f32", False, True),
-                              ("bf16_stream", True, False)):
+    for name, bf16 in (("bf16", True), ("f32", False)):
         res = trainer.build_train_setup(
             cfg, "ape", os.path.join(tmp, f"timed_{name}"),
-            pretrained_backbone=None, bf16=bf16, cache_images=cache,
+            pretrained_backbone=None, bf16=bf16, cache_images=True,
             log_freq=TRAIN_LOG_FREQ, device=dev)
         try:
-            if cache:
-                batches = [next(res.train_iter) for _ in range(4)]
-                res.train_iter.close()
-                res.train_iter = _Batches(batches)
-            n, warm = (30, 10) if cache else (20, 3)
+            batches = [next(res.train_iter) for _ in range(4)]
+            res.train_iter.close()
+            res.train_iter = _Batches(batches)
+            n, warm = 30, 10
             torch.cuda.reset_peak_memory_stats(dev)
             t = {}
             trainer.timed_steps(res, n_steps=n, warm=warm, timing=t)
@@ -1511,10 +1532,8 @@ def train_phase(dev, card, tmp):
                 if t["busy_share"] is None else
                 f"{100 * t['busy_share']:.1f}% ({t['kernels_a_step']:.0f} "
                 f"kernels a step)")
-        log(f"[train] timed_steps {name} ("
-            + ("frames from memory" if cache else
-               "frames read per draw, 8 reading threads")
-            + f"), b{TRAIN_BATCH}, {n} steps after {warm}: "
+        log(f"[train] timed_steps {name} (frames from memory), "
+            f"b{TRAIN_BATCH}, {n} steps after {warm}: "
             f"{t['host_ms']:.2f} ms a step host clock, "
             f"{t.get('event_ms', float('nan')):.2f} ms CUDA events, "
             f"{TRAIN_BATCH / t['host_ms'] * 1e3:.1f} samples/s; waiting for "
@@ -2740,6 +2759,17 @@ def fleet_train(dev, card, tmp, cfg_train):
     return rec
 
 
+def _phase8_checkpoint(tmp):
+    """Phase 8's best checkpoint (when no validation rose above recall
+    0, the last of its rolling ones in name order)."""
+    best_dir = os.path.join(tmp, "runs", "lmo_ape", "checkpoints", "best")
+    best = sorted(f for f in os.listdir(best_dir) if f.endswith(".pth")) \
+        if os.path.isdir(best_dir) else []
+    steps_dir = os.path.join(tmp, "runs", "lmo_ape", "checkpoints", "steps")
+    return os.path.join(best_dir, best[0]) if best else os.path.join(
+        steps_dir, sorted(os.listdir(steps_dir))[-1])
+
+
 def fleet_phase(dev, card, tmp):
     """Phase 12 (see the module docstring), after phases 7-11 under
     `tmp`; returns its record."""
@@ -2755,12 +2785,7 @@ def fleet_phase(dev, card, tmp):
     log(f"[fleet] tree written in {time.perf_counter() - t0:.1f} s; its "
         f"frames (Sub rows) decode to phase 7's: {same}")
     check(same, "the fleet tree's frames differ from phase 7's")
-    best_dir = os.path.join(tmp, "runs", "lmo_ape", "checkpoints", "best")
-    best = sorted(f for f in os.listdir(best_dir) if f.endswith(".pth")) \
-        if os.path.isdir(best_dir) else []
-    steps_dir = os.path.join(tmp, "runs", "lmo_ape", "checkpoints", "steps")
-    ckpt8 = os.path.join(best_dir, best[0]) if best else os.path.join(
-        steps_dir, sorted(os.listdir(steps_dir))[-1])
+    ckpt8 = _phase8_checkpoint(tmp)
     rec = {"options": solver_options(dev, card),
            "test": fleet_test(dev, card, tmp, froot, cfg_test, ckpt8),
            "vivo": fleet_vivo(dev, card, tmp, froot, cfg_vivo),
@@ -4359,6 +4384,385 @@ def int8_phase(dev, card, tmp, runner, n_q):
     return rec
 
 
+# ---- the CLI phase -------------------------------------------------------
+
+# phase 15: the frames `test --debug` walks (its refined `test` and the
+# fleet's), and the input modes' timed steps
+DEBUG_FRAMES = 16
+MODE_STEPS, MODE_WARM = 30, 2
+# the first step's loss_total of prefetch and device_cache against
+# stream's on the same draws, relative
+MODE_LOSS_GATE = 1e-5
+
+
+def _command_output(argv):
+    """cli.main(argv) with its standard output captured (and echoed):
+    (return code, the text)."""
+    import contextlib
+    import io
+
+    from zebrapose_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    sys.stdout.write(buf.getvalue())
+    return rc, buf.getvalue()
+
+
+def _same_pngs(a_dir, b_dir, names):
+    """The named PNGs of two directories decode to the same pixels."""
+    from zebrapose_tpu_torch.data import png
+
+    return all(np.array_equal(
+        png.imread(os.path.join(a_dir, n), png.IMREAD_UNCHANGED),
+        png.imread(os.path.join(b_dir, n), png.IMREAD_UNCHANGED))
+        for n in names)
+
+
+def _same_metrics(a, b):
+    return sorted(a) == sorted(b) and all(
+        a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k])) for k in a)
+
+
+def _csv_text(run_dir, name="lmo_ape.csv"):
+    with open(os.path.join(run_dir, "pose_result_bop", name)) as f:
+        return f.read()
+
+
+def cli_visualize(dev, card, tmp):
+    """Phase 15, item 1: `visualize` on a frame of phase 7's tree that
+    phase 7's plain run solved: its four PNGs, its metrics against
+    run_test(frame=) at batch 1, and each PNG against the set the host
+    rebuilds from the eval step's masks, codes and poses of that frame."""
+    import torch
+
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.eval.evaluate import run_inference
+    from zebrapose_tpu_torch.eval.runner import (
+        build_eval_step,
+        dump_debug_set,
+        load_model,
+        prepare_object_eval,
+        run_test,
+    )
+    from zebrapose_tpu_torch.ops.pnp import PnPConfig
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+
+    cfg_path = os.path.join(tmp, "bop", "lmo_ape.txt")
+    cfg = ZebraConfig.from_file(cfg_path)
+    solved = [im for im, (R, t) in sorted(_csv_poses(os.path.join(
+        _run_dir(os.path.join(tmp, "out_plain")), "pose_result_bop",
+        "lmo_ape.csv")).items()) if np.any(t != 0)]
+    four = ["000000_code_err.png", "000000_mask.png", "000000_pose.png",
+            "000000_pose_gt.png"]
+    for tries, im in enumerate(solved[:4], 1):
+        out = os.path.join(tmp, f"vis_{im}")
+        minimal_epnp_hypotheses.launches = 0
+        t0 = time.perf_counter()
+        rc, _ = _command_output(
+            ["visualize", "--cfg", cfg_path, "--obj_name", "ape",
+             "--ckpt_file", CKPT, "--scene", "1", "--im", str(im),
+             "--output_dir", out, "--device", str(dev)])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = minimal_epnp_hypotheses.launches
+        check(rc == 0, f"visualize returned {rc}")
+        run = _run_dir(out)
+        dbg = os.path.join(run, "debug")
+        if sorted(os.listdir(dbg)) == four:
+            break
+        log(f"[cli] visualize frame {im}: {sorted(os.listdir(dbg))} (the "
+            "pose failed at batch 1; the next frame phase 7 solved)")
+    check(sorted(os.listdir(dbg)) == four,
+          f"visualize wrote {sorted(os.listdir(dbg))}")
+    check(launches == 1, f"visualize launched the kernel {launches} times")
+    metrics = _logged_metrics(run)
+    direct = run_test(cfg, "ape", CKPT, os.path.join(tmp, "vis_direct"),
+                      batch_size=1, frame=(1, im), device=dev)
+    same_metrics = _same_metrics(metrics, direct)
+    # the host's rebuild from the step's outputs on that frame
+    oe = prepare_object_eval(cfg, "ape", frame=(1, im))
+    model = load_model(cfg, CKPT, device=dev)
+    step = build_eval_step(cfg, model, oe.lut, PnPConfig(),
+                           return_masks=True, return_codes=True, device=dev)
+    Rs, ts, ok, vis, _, codes = run_inference(
+        oe.dataset, step, 1, device=dev, collect_masks=True,
+        collect_codes=True)
+    Rs[~ok] = np.eye(3)
+    ts[~ok] = 0
+    rebuilt = os.path.join(tmp, "vis_rebuilt")
+    dump_debug_set(rebuilt, cfg, oe.dataset, oe.mesh, oe.vertices, vis,
+                   codes, Rs, ts, ok)
+    same_png = sorted(os.listdir(rebuilt)) == four and \
+        _same_pngs(dbg, rebuilt, four)
+    log(f"[cli] `visualize --scene 1 --im {im}` ({tries} frame(s) tried):"
+        f" {four} in {wall:.2f} s, {launches} kernel launch; metrics equal "
+        f"run_test(frame=) at batch 1: {same_metrics} (ADD recall@0.1d "
+        f"{metrics['ADD_recall_0.1d']:.0f}); PNGs equal the host's rebuild "
+        f"from the step's masks, codes and poses: {same_png}; on {card}")
+    check(same_metrics, "visualize's metrics differ from run_test(frame=)")
+    check(same_png, "visualize's PNGs differ from the host's rebuild")
+    return {"frame": im, "tried": tries, "wall_s": wall,
+            "launches": launches}
+
+
+def cli_debug(dev, card, tmp):
+    """Phase 15, items 2-3: `test --debug` with refine = True over the
+    first DEBUG_FRAMES frames of phase 7's tree against the same run
+    without --debug (CSV byte-equal), and `test-fleet --debug` over
+    phase 12's tree."""
+    rec = {}
+    cfg_path = os.path.join(tmp, "bop", "lmo_ape.txt")
+    extra = ["--ckpt_file", CKPT, "--max_samples", str(DEBUG_FRAMES)]
+    runs = {}
+    for name, flags in (("debug", ["--debug"]), ("plain", [])):
+        out = os.path.join(tmp, f"dbg_{name}")
+        _, timing, launches, wall, rows = refine_test(
+            dev, card, cfg_path, out, extra + flags)
+        runs[name] = dict(timing=timing, launches=launches, wall=wall,
+                          run=_run_dir(out))
+    run = runs["debug"]["run"]
+    dbg = os.path.join(run, "debug")
+    files = os.listdir(dbg)
+    sets = sum(f.endswith("_mask.png") for f in files)
+    poses = sum(f.endswith("_pose.png") for f in files)
+    refine_dir = os.path.join(dbg, "refine")
+    refined = runs["debug"]["timing"].get("refined", 0)
+    frames = sorted(os.listdir(refine_dir)) if os.path.isdir(refine_dir) \
+        else []
+    n_frames = sum(len(os.listdir(os.path.join(refine_dir, d)))
+                   for d in frames)
+    same_csv = _csv_text(run) == _csv_text(runs["plain"]["run"])
+    log(f"[cli] `test --debug` with refine = True over {DEBUG_FRAMES} "
+        f"frames: {sets} artifact sets ({poses} with the predicted pose), "
+        f"the refiner's frames of {len(frames)} samples ({n_frames} images; "
+        f"{refined} poses refined), {runs['debug']['wall']:.2f} s against "
+        f"{runs['plain']['wall']:.2f} s without --debug (debug_s "
+        f"{runs['debug']['timing'].get('debug_s', float('nan')):.2f}); CSV "
+        f"byte-equal to the run without --debug: {same_csv}; "
+        f"{runs['debug']['launches']} kernel launches; on {card}")
+    check(sets == DEBUG_FRAMES, f"test --debug wrote {sets} sets")
+    check(len(frames) == refined and (refined == 0 or n_frames > 0),
+          "the refiner's debug frames do not match the refined poses")
+    check(same_csv, "test --debug changed the CSV")
+    rec["test"] = dict(sets=sets, poses=poses, refined=refined,
+                       refine_images=n_frames, same_csv=same_csv,
+                       wall_s=runs["debug"]["wall"],
+                       plain_wall_s=runs["plain"]["wall"],
+                       launches=runs["debug"]["launches"])
+
+    froot = os.path.join(tmp, "fleet")
+    cfg_fleet = os.path.join(froot, "lmo_fleet.txt")
+    wall, launches, frun = _test_cmd(
+        dev, cfg_fleet, os.path.join(tmp, "dbg_fleet"), ["ape", FLEET_OBJ],
+        [CKPT, CKPT], ["--debug", "--max_samples", str(DEBUG_FRAMES)])
+    got = {n: sum(f.endswith("_mask.png") for f in os.listdir(
+        os.path.join(frun, "debug", n))) for n in ("ape", FLEET_OBJ)}
+    log(f"[cli] `test-fleet --debug` (ape, {FLEET_OBJ}) over "
+        f"{DEBUG_FRAMES} frames: artifact sets {json.dumps(got)} under "
+        f"debug/<obj>/, {wall:.2f} s, {launches} kernel launches; on {card}")
+    check(got == {"ape": DEBUG_FRAMES, FLEET_OBJ: DEBUG_FRAMES},
+          f"test-fleet --debug wrote {got}")
+    rec["fleet"] = dict(sets=got, wall_s=wall, launches=launches)
+    return rec
+
+
+def cli_export(dev, card, tmp):
+    """Phase 15, item 4: `export-ckpt` of the committed .npz and of phase
+    8's .pth; `test` on each output (strict loads), the .npz's export
+    against `test` on the .npz itself (CSV byte-equal)."""
+    import torch
+
+    ckpt8 = _phase8_checkpoint(tmp)
+    cfg_path = os.path.join(tmp, "bop", "lmo_ape.txt")
+    rec = {}
+    for name, src in (("npz", CKPT), ("pth", ckpt8)):
+        out = os.path.join(tmp, f"exported_{name}.pth")
+        t0 = time.perf_counter()
+        rc, _ = _command_output(["export-ckpt", "--ckpt_file", src,
+                                 "--out", out, "--step", "1",
+                                 "--device", str(dev)])
+        export_s = time.perf_counter() - t0
+        check(rc == 0, f"export-ckpt of the {name} returned {rc}")
+        payload = torch.load(out, map_location="cpu", weights_only=True)
+        check(sorted(payload) == ["best_score", "iteration_step",
+                                  "model_state_dict"],
+              f"the exported {name} is not the reference's dict")
+        wall, launches, run = _test_cmd(
+            dev, cfg_path, os.path.join(tmp, f"exp_test_{name}"), ["ape"],
+            [out], ["--max_samples", "32"])
+        rec[name] = dict(export_s=export_s, bytes=os.path.getsize(out),
+                         test_s=wall, keys=len(payload["model_state_dict"]),
+                         run=run)
+    _, _, npz_run = _test_cmd(dev, cfg_path, os.path.join(tmp, "exp_npz"),
+                              ["ape"], [CKPT], ["--max_samples", "32"])
+    same = _csv_text(rec["npz"].pop("run")) == _csv_text(npz_run)
+    rec["pth"].pop("run")
+    log(f"[cli] `export-ckpt`: the .npz in {rec['npz']['export_s']:.2f} s "
+        f"({rec['npz']['bytes'] / 2 ** 20:.1f} MiB, "
+        f"{rec['npz']['keys']} tensors), phase 8's "
+        f"{os.path.basename(ckpt8)} in {rec['pth']['export_s']:.2f} s; "
+        f"both strict-load into `test`; `test` on the exported .pth "
+        f"writes the CSV of `test` on the .npz byte for byte (32 frames): "
+        f"{same}; on {card}")
+    check(same, "test on the exported .pth differs from test on the .npz")
+    rec["same_csv"] = same
+    return rec
+
+
+def cli_model_cost(dev, card):
+    """Phase 15, item 5: `model-cost` on the card against the count of
+    the same model on the CPU in this process."""
+    import torch
+
+    from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
+    from zebrapose_tpu_torch.utils.profiling import model_cost
+
+    t0 = time.perf_counter()
+    rc, text = _command_output(["model-cost", "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"model-cost returned {rc}")
+    got = json.loads(text.strip().splitlines()[-1])
+    cpu = model_cost(ZebraPoseNet(binary_code_length=16),
+                     torch.zeros((1, 256, 256, 3)))
+    want = {"params_M": round(cpu["params"] / 1e6, 3),
+            "flops_G": round(cpu["flops"] / 1e9, 3)}
+    log(f"[cli] `model-cost` on the card: {json.dumps(got)} in {wall:.2f} "
+        f"s; the CPU's count: {json.dumps(want)} (params {cpu['params']}, "
+        f"FLOPs {cpu['flops']:.0f}: every tap of each conv, where XLA's "
+        f"count leaves out the taps in the padding); on {card}")
+    check(got == want, "model-cost on the card differs from the CPU's count")
+    return dict(got, wall_s=wall)
+
+
+def cli_input_modes(dev, card, tmp):
+    """Phase 15, item 6: `train --input_mode stream | prefetch |
+    device_cache` over phase 8's split, bf16, b32, from the same init:
+    the first batch and step on the same draws (one reading thread, so
+    the jitter seeds follow the draws in every mode), prefetch's next
+    feeds against stream's (its inner iterator's twin), then MODE_STEPS
+    timed steps each (stream and prefetch with the config's reading
+    threads) and the device's busy share over 5 more."""
+    import dataclasses
+
+    import torch
+
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.data.pipeline import FEED_KEYS
+    from zebrapose_tpu_torch.train import trainer
+
+    cfg = ZebraConfig.from_file(os.path.join(tmp, "bop",
+                                             "lmo_ape_train.txt"))
+    one = dataclasses.replace(cfg, num_workers=0)
+    rec = {"card": card, "batch": cfg.batch_size, "steps": MODE_STEPS}
+
+    def setup(mode, c, tag):
+        return trainer.build_train_setup(
+            c, "ape", os.path.join(tmp, f"modes_{mode}_{tag}"),
+            pretrained_backbone=None, bf16=True, log_freq=TRAIN_LOG_FREQ,
+            device_cache=mode == "device_cache",
+            device_prefetch=mode == "prefetch", device=dev)
+
+    # the same draws in the three modes: batch and first step
+    loss_cfg = trainer._loss_cfg(cfg)
+    res, first, batch0 = {}, {}, {}
+    t0 = time.perf_counter()
+    res["device_cache"] = setup("device_cache", cfg, "t")
+    cache = res["device_cache"].device_cache
+    cache_s = time.perf_counter() - t0
+    for mode in ("stream", "prefetch"):
+        res[mode] = setup(mode, one, "g")
+    for mode, r in res.items():
+        batch0[mode] = trainer._make_batch_fn(r)(0)
+        first[mode] = float(trainer.train_step(
+            r.state, batch0[mode], loss_cfg,
+            binary_loss_weight=float(cfg.binary_loss_weight),
+            predict_entire_mask=cfg.predict_entire_mask,
+            bf16=True)["loss_total"])
+    same_batch = {m: all(torch.equal(batch0[m][k], batch0["stream"][k])
+                         for k in batch0["stream"])
+                  for m in ("prefetch", "device_cache")}
+    rel = {m: abs(first[m] - first["stream"]) / abs(first["stream"])
+           for m in ("prefetch", "device_cache")}
+    # prefetch's next feeds against those its inner iterator's twin
+    # (stream's, the same draws) reads
+    try:
+        same_feeds = all(
+            all(np.array_equal(f[k].cpu().numpy(), w[k]) for k in FEED_KEYS)
+            for f, w in ((next(res["prefetch"].train_iter),
+                          next(res["stream"].train_iter)) for _ in range(3)))
+    finally:
+        for mode in ("stream", "prefetch"):
+            r = res.pop(mode)
+            r.train_iter.close()
+            r.ckpt.close()
+            r.logger.close()
+    log(f"[cli] input modes, b{cfg.batch_size} bf16, the same draws: first "
+        f"batch equal to stream's: {json.dumps(same_batch)}; first step's "
+        f"loss_total stream {first['stream']:.6f}, prefetch "
+        f"{first['prefetch']:.6f}, device_cache {first['device_cache']:.6f} "
+        f"(relative {rel['prefetch']:.1e} / {rel['device_cache']:.1e}, gate "
+        f"{MODE_LOSS_GATE:g}); prefetch's feeds equal its inner iterator's "
+        f"(3 batches): {same_feeds}; the cache: {len(cache)} frames "
+        f"{cache.image_hw}, {cache.nbytes} B "
+        f"({cache.nbytes / len(cache) / 1e6:.2f} MB a frame) uploaded with "
+        f"the setup in {cache_s:.1f} s")
+    check(all(same_batch.values()), "a mode's first batch differs")
+    check(max(rel.values()) <= MODE_LOSS_GATE,
+          "a mode's first loss differs from stream's")
+    check(same_feeds, "prefetch's feeds differ from its inner iterator's")
+    rec.update(first_loss=first, first_rel=rel, same_batch=same_batch,
+               same_feeds=same_feeds, cache_bytes=cache.nbytes,
+               cache_frames=len(cache), cache_s=cache_s, timed={})
+
+    # MODE_STEPS steps each: device_cache goes on from its first step
+    for mode in ("stream", "prefetch", "device_cache"):
+        r = res.pop(mode) if mode in res else setup(mode, cfg, "t")
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = {}
+            trainer.timed_steps(r, n_steps=MODE_STEPS, warm=MODE_WARM,
+                                timing=t)
+            t["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            t["busy_share"], t["kernels_a_step"] = busy_share(
+                lambda: trainer.timed_steps(r, n_steps=5, warm=0), 5)
+        finally:
+            r.train_iter.close()
+            r.ckpt.close()
+            r.logger.close()
+            del r
+            torch.cuda.empty_cache()
+        t["wait_share"] = t["wait_s"] / (t["host_ms"] * MODE_STEPS / 1e3)
+        busy = ("not measured (no device kernels seen)"
+                if t["busy_share"] is None else
+                f"{100 * t['busy_share']:.1f}% ({t['kernels_a_step']:.0f} "
+                f"kernels a step)")
+        log(f"[cli] `--input_mode {mode}`: {MODE_STEPS} steps after "
+            f"{MODE_WARM}: {t['host_ms']:.2f} ms a step host clock, "
+            f"{t.get('event_ms', float('nan')):.2f} ms CUDA events, "
+            f"{cfg.batch_size / t['host_ms'] * 1e3:.1f} samples/s; waiting "
+            f"for a batch {100 * t['wait_share']:.2f}% of the time; device "
+            f"busy over 5 more steps under torch.profiler {busy}; peak "
+            f"device memory {t['peak_bytes'] / 2 ** 30:.2f} GiB; on {card}")
+        rec["timed"][mode] = t
+    return rec
+
+
+def cli_phase(dev, card, tmp):
+    """Phase 15 (see the module docstring), after phases 7-14 under
+    `tmp`; returns its record."""
+    t_phase = time.perf_counter()
+    rec = {"visualize": cli_visualize(dev, card, tmp)}
+    rec.update(cli_debug(dev, card, tmp))
+    rec["export"] = cli_export(dev, card, tmp)
+    rec["model_cost"] = cli_model_cost(dev, card)
+    rec["modes"] = cli_input_modes(dev, card, tmp)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[cli] phase 15 took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def _build_other(path, stem):
     """Compile another version of a csrc/*.cu file with the port's flags
     into the build directory; the library's path."""
@@ -4855,7 +5259,8 @@ def main(argv=None) -> int:
         "minimal-set EPnP")
 
     # ---- 7. the test runner, 8. the training path, 9. BOP, 10. prep,
-    # 11. refinement and the model families, 12. the fleet, 13. serving --
+    # 11. refinement and the model families, 12. the fleet, 13. serving,
+    # 14. int8, 15. the CLI tools and the input modes --------------------
     with tempfile.TemporaryDirectory() as tmp:
         runner = runner_phase(dev, card, tmp)
         train = train_phase(dev, card, tmp)
@@ -4866,6 +5271,7 @@ def main(argv=None) -> int:
         serving = serving_phase(dev, card, tmp)
         int8 = int8_phase(dev, card, tmp, runner,
                           int8_rec["quantized_convs"])
+        cli_rec = cli_phase(dev, card, tmp)
 
     main_n = 256 * cfg.n_hypotheses                  # the b256 stage
     rec = {"name": "minimal_epnp_hypotheses", "route": "cuda",
@@ -4894,10 +5300,13 @@ def main(argv=None) -> int:
                "vivo_fleet": fleet["vivo"]["launches"],
                "train_fleet": fleet["train"]["launches"],
                **{f"serve_{k}": v["launches"]
-                  for k, v in serving["serve"].items()}},
+                  for k, v in serving["serve"].items()},
+               "visualize": cli_rec["visualize"]["launches"],
+               "test_debug": cli_rec["test"]["launches"],
+               "test_fleet_debug": cli_rec["fleet"]["launches"]},
            "runner": runner, "train": train, "bop": bop, "prep": prep,
            "families": families, "fleet": fleet, "serving": serving,
-           "card": card}
+           "cli": cli_rec, "card": card}
     if ab:
         rec["ab"] = {str(n): v for n, v in ab.items()}
     recs = [rec]

@@ -600,12 +600,23 @@ def test_fleet_commands_need_cuda_unless_cpu_is_asked(
     ("test-fleet", "--debug", "A7")])
 def test_fleet_refusals_name_their_roadmap_items(fleet_tree, tmp_path,
                                                  command, flag, item):
-    args = [command, "--cfg", _write_cfg(fleet_tree, tmp_path),
+    """The fleet flags once refused by their ROADMAP item run now:
+    `test-fleet --debug` (A7) writes each object's debug set under
+    debug/<obj_name>/ (tests/test_torch_visualize.py holds it against
+    JAX's)."""
+    out = tmp_path / "out"
+    args = [command, "--cfg", _write_cfg(fleet_tree, tmp_path,
+                                         BoundingBox_CropSize_image=32,
+                                         BoundingBox_CropSize_GT=16),
             "--obj_names", "ape", "cat", "--ckpt_files", fleet_tree["ckpt"],
-            fleet_tree["ckpt"], "--output_dir", str(tmp_path / "out"),
-            "--device", "cpu", flag]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        cli.main(args)
+            fleet_tree["ckpt"], "--output_dir", str(out), "--batch_size",
+            "2", "--device", "cpu", flag]
+    assert cli.main(args) == 0, item
+    (run,) = os.listdir(out)
+    for name, n in (("ape", 3), ("cat", 2)):
+        files = set(os.listdir(out / run / "debug" / name))
+        assert {f"{i:06d}_{k}.png" for i in range(n)
+                for k in ("mask", "code_err", "pose_gt")} <= files, item
 
 
 @pytest.mark.parametrize("command", ["test-fleet", "vivo-fleet"])

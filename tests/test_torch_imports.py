@@ -82,7 +82,8 @@ def test_port_imports_no_jax_in_subprocess():
                 "eval.bop_score", "eval.vivo", "eval.runner_vivo",
                 "data.jpeg", "data.tiff", "tools.symmetry",
                 "tools.generate_gt", "tools.label_driver", "train.fleet",
-                "eval.fleet_serve", "eval.export_serving"}
+                "eval.fleet_serve", "eval.export_serving",
+                "utils.visualize", "tools.fibonacci_code"}
     assert {"zebrapose_tpu_torch." + m for m in expected} <= \
         set(res["modules"])
     # the port does not touch the TF32 switches: float32 matmuls stay
@@ -149,15 +150,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                   np.zeros((1, 4, 4), np.float32),
                   np.eye(3)[None], np.zeros((3, 3), np.float32),
                   np.zeros((1, 3), np.int32), 80.0)
-    # serving: the exports and the artifacts' drivers
+    # serving: the exports and the artifacts' drivers; the tools
     for command in (["export-serving", "--obj_name", "ape", "--ckpt_file",
                      "unused.npz", "--out", "unused.serving"],
+                    ["visualize", "--obj_name", "ape", "--ckpt_file",
+                     "unused.npz", "--scene", "2", "--im", "0"],
                     ["serve-exported", "--obj_name", "ape", "--blob",
                      "unused.serving"],
                     ["serve-exported-fleet", "--obj_names", "ape", "can",
                      "--blob", "unused.serving"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(command + ["--cfg", "unused.txt"])
+    for command in (["model-cost"], ["export-ckpt", "--ckpt_file",
+                                     "unused.npz", "--out", "unused.pth"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(command)
     # CPU work must be asked for: device="cpu" builds the step
     make_eval_step(lambda b: b, lut, 64, 32, 2, 2, "crop_square_resize",
                    "BCE", PnPConfig(), device="cpu")

@@ -454,12 +454,23 @@ def test_run_test_with_refine_matches_jax(bop_tree, tmp_path,  # noqa: F811
 
 
 def test_debug_dumps_stay_refused_by_name(bop_tree, tmp_path):  # noqa: F811
+    """Debug dumps, once refused by their ROADMAP item (A7), run: with
+    refine = True and a random network, `run_test(debug=True)` writes
+    the per-sample set under debug/ beside the CSV (tests/
+    test_torch_visualize.py holds the set against JAX's)."""
     bop_path, _ = bop_tree
     cfg = ZebraConfig.from_dict(dict(_cfg_dict(bop_path), refine=True))
-    with pytest.raises(NotImplementedError, match="A7"):
-        trunner.run_test(cfg, "ape", str(tmp_path / "x.pth"),
-                         str(tmp_path / "o"), debug=True, device="cpu")
-
+    ckpt = str(tmp_path / "x.pth")
+    torch.save({"model_state_dict": ReferenceNet("v2", 16).state_dict()},
+               ckpt)
+    out = tmp_path / "o"
+    trunner.run_test(cfg, "ape", ckpt, str(out), debug=True, batch_size=2,
+                     device="cpu")
+    files = set(os.listdir(out / "debug"))
+    assert {f"{i:06d}_{k}.png" for i in range(3)
+            for k in ("mask", "code_err")} <= files
+    assert (out / "pose_result_bop" / "lmo_ape.csv").exists()
+    os.remove(ckpt)
 
 
 # ---------------------------------------------------------------------------

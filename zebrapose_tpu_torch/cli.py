@@ -3,10 +3,12 @@
   python -m zebrapose_tpu_torch train --cfg cfg.txt --obj_name ape \
       [--from_scratch | --pretrained_backbone resnet34.pth] [--bf16] \
       [--qat] [--max_steps N] [--log_freq N] [--cache_images] \
-      [--device cuda|cpu]
+      [--input_mode stream|prefetch|device_cache] [--device cuda|cpu]
   python -m zebrapose_tpu_torch test --cfg cfg.txt --obj_name ape \
       --ckpt_file <.npz or .pth> [--batch_size N] [--escalate_h 256] \
-      [--int8] [--device cuda|cpu]
+      [--int8] [--debug] [--device cuda|cpu]
+  python -m zebrapose_tpu_torch visualize --cfg cfg.txt --obj_name ape \
+      --ckpt_file <.npz or .pth> --scene 2 --im 0 [--device cuda|cpu]
   python -m zebrapose_tpu_torch vivo --cfg cfg.txt --obj_name ape \
       --ckpt_file <.npz or .pth> [--score_threshold 0.2] [--batch_size N] \
       [--mask_rcnn] [--roi_slice] [--escalate_h 256] [--int8] \
@@ -23,7 +25,7 @@
       [--log_freq N] [--device cuda|cpu]
   python -m zebrapose_tpu_torch test-fleet --cfg cfg.txt \
       --obj_names ape can --ckpt_files a.pth b.pth [--batch_size N] \
-      [--mask_rcnn] [--roi_slice] [--escalate_h 256] [--int8] \
+      [--mask_rcnn] [--roi_slice] [--escalate_h 256] [--int8] [--debug] \
       [--device cuda|cpu]
   python -m zebrapose_tpu_torch vivo-fleet --cfg cfg.txt \
       --obj_names ape can --ckpt_files a.pth b.pth [--score_threshold 0.2] \
@@ -41,18 +43,29 @@
       [--batch 16] [--f32] [--int8] [--device cuda|cpu]
   python -m zebrapose_tpu_torch serve-exported-fleet --cfg cfg.txt \
       --obj_names ape can --blob fleet.serving [--vivo] [--device cuda|cpu]
+  python -m zebrapose_tpu_torch export-ckpt --ckpt_file <.npz or .pth> \
+      --out ref.pth [--variant v2] [--resnet_layers 34] [--base 2]
+  python -m zebrapose_tpu_torch model-cost [--variant v2] \
+      [--resnet_layers 34] [--code_length 16] [--crop 256] [--no_concat] \
+      [--device cuda|cpu]
 
 The flags are those of `python -m zebrapose_tpu train` / `test` /
 `vivo` / `score-bop` plus `--device` (default cuda; without CUDA a
 command fails unless `--device cpu` is given). `train` writes
 `<output_dir>/<dataset>_<obj>/checkpoints/` (reference-format .pth files
 that `test` loads) and `logs/metrics.jsonl`; `--qat` trains through the
-fake-quant convs, and the checkpoint loads unchanged into `--int8`. Its
-`--multihost` and `--input_mode prefetch | device_cache` raise
-NotImplementedError. `--int8` on `test`, `vivo`, `test-fleet`,
-`vivo-fleet`, `export-serving` and `export-serving-fleet` runs the convs
-above the int8 gate on the int8 CUDA kernels (`ops/int8_conv.py`; the
-plain versions with `--device cpu`). `vivo` (the BOP-challenge
+fake-quant convs, and the checkpoint loads unchanged into `--int8`;
+`--input_mode prefetch` copies each batch to the card one step ahead on
+a side stream, `device_cache` uploads the training splits' pixels once
+and gathers each batch on the card (`data/pipeline.py`). Its
+`--multihost` raises NotImplementedError (A8). `test --debug` writes the
+reference's debug artifacts (mask panels, code-error grids, pose
+outlines; `utils/visualize.py`) under `<run dir>/debug`, and
+`visualize` does so for one frame (`--scene`, `--im`). `--int8` on
+`test`, `vivo`, `test-fleet`, `vivo-fleet`, `export-serving` and
+`export-serving-fleet` runs the convs above the int8 gate on the int8
+CUDA kernels (`ops/int8_conv.py`; the plain versions with `--device
+cpu`). `vivo` (the BOP-challenge
 multi-instance protocol over detections) writes the submission CSV that
 `score-bop` scores (BOP19 AR_vsd / AR_mssd / AR_mspd; the result is
 printed as JSON). The config file is the reference's flat `key = value`
@@ -66,8 +79,8 @@ accelerator either, so this is not a CPU fallback. `train-fleet`,
 `test-fleet` and `vivo-fleet` are the fleet commands: K objects' models
 in one program (`train/fleet.py`, `eval/fleet_serve.py`), each member
 writing the single-object command's files under its own name and the
-evaluations one merged submission CSV; `test-fleet --debug` (A7) raises
-NotImplementedError. `export-serving` and
+evaluations one merged submission CSV; `test-fleet --debug` writes each
+object's debug artifacts under `debug/<obj_name>/`. `export-serving` and
 `export-serving-fleet` write the eval program of one object or of K
 objects, weights and LUT included, as one `torch.export` artifact
 (`eval/export_serving.py`) bound to the device it was traced on;
@@ -75,9 +88,15 @@ objects, weights and LUT included, as one `torch.export` artifact
 split from such an artifact alone and write the CSVs of `test` / `vivo`
 / `test-fleet` / `vivo-fleet`. Their `--platforms` and `--pallas` are
 refused: a torch.export program runs on the device it was exported on,
-and the EPnP kernel goes with that device. The other commands of the JAX
-package's CLI (`export-ckpt`, `model-cost`, `visualize`) are not ported
-yet (ROADMAP.md).
+and the EPnP kernel goes with that device. `export-ckpt` writes a
+checkpoint (`.npz` or `.pth`) as the reference's `.pth` dict
+(`models/convert.py::save_reference_checkpoint`) and strict-loads the
+file into the model on `--device`; orbax directories are refused by
+design. `model-cost`
+prints the model's parameters and one eval forward's FLOPs at batch 1
+(`torch.utils.flop_counter`: matmuls and convolutions, where the JAX
+package's XLA count also has elementwise ops) as the JAX package's
+JSON line.
 """
 
 from __future__ import annotations
@@ -155,8 +174,13 @@ def _add_train(sub):
                    help="multi-host training (not ported yet)")
     p.add_argument("--input_mode", default="stream",
                    choices=["stream", "prefetch", "device_cache"],
-                   help="stream = host MixedBatchIterator; prefetch and "
-                        "device_cache are not ported yet")
+                   help="stream = host MixedBatchIterator (default); "
+                        "prefetch = copy each batch to the device one step "
+                        "ahead on a side stream; device_cache = upload the "
+                        "training splits' pixels to the device once and "
+                        "gather each batch there (~2.46 MB a 480x640 "
+                        "sample: for per-object real splits, not 50k PBR "
+                        "trees)")
     p.add_argument("--cache_images", action="store_true",
                    help="hold decoded full-res frames in host RAM")
     p.add_argument("--accum_steps", type=int, default=1,
@@ -172,9 +196,6 @@ def _add_train(sub):
 def _train(args) -> int:
     if args.multihost:
         raise NotImplementedError("--multihost " + _UNPORTED + " (A8)")
-    if args.input_mode != "stream":
-        raise NotImplementedError(f"--input_mode {args.input_mode} "
-                                  + _UNPORTED + " (A8)")
     from zebrapose_tpu_torch.config import ZebraConfig
     from zebrapose_tpu_torch.train.trainer import build_train_setup, fit
     from zebrapose_tpu_torch.utils.device import resolve_device
@@ -191,7 +212,8 @@ def _train(args) -> int:
         log_freq=args.log_freq, cache_images=args.cache_images,
         accum_steps=args.accum_steps,
         gt_dir_suffix="_GT" if args.gt_labels == "v1" else "_GT_v2",
-        device=device)
+        device_cache=args.input_mode == "device_cache",
+        device_prefetch=args.input_mode == "prefetch", device=device)
     timing = {}
     try:
         with profile_trace(args.profile):
@@ -254,7 +276,9 @@ def _add_fleet(sub):
                             "bytes (a fleet-wide buffer; bit-exact crops)")
         if name == "test-fleet":
             p.add_argument("--debug", action="store_true",
-                           help="debug dumps (not ported yet)")
+                           help="write the per-sample debug artifact set "
+                                "under debug/<obj_name>/ (reference "
+                                "test.py:315-441), as `test --debug` does")
         _add_pnp_flags(p)
         _add_device(p)
 
@@ -493,12 +517,123 @@ def _serve_exported(args, cfg, device) -> int:
     return 0
 
 
+def _add_tools(sub):
+    p = sub.add_parser(
+        "visualize",
+        help="full debug-artifact dump for one frame: mask panels, per-bit "
+             "code-error grids, pose overlay (the reference's "
+             "test_for_one_image.py / test_vis_mask.py, around the test "
+             "--debug artifact set)")
+    p.add_argument("--cfg", required=True, help="reference-format config")
+    p.add_argument("--obj_name", required=True)
+    p.add_argument("--ckpt_file", required=True,
+                   help="compact .npz or reference-format .pth")
+    p.add_argument("--scene", type=int, required=True,
+                   help="BOP scene id (e.g. 2 for lmo test/000002)")
+    p.add_argument("--im", type=int, required=True,
+                   help="image id within the scene")
+    p.add_argument("--output_dir", default="eval_out")
+    p.add_argument("--variant", default="v2", choices=["v1", "v2", "v3"])
+    p.add_argument("--ignore_bit", type=int, default=0)
+    p.add_argument("--mask_rcnn", action="store_true")
+    _add_device(p)
+
+    p = sub.add_parser(
+        "export-ckpt",
+        help="export a checkpoint (.npz or .pth) to the reference's torch "
+             ".pth format (utils_v2.save_checkpoint dict) so models trained "
+             "here load in the reference's tooling")
+    p.add_argument("--ckpt_file", required=True,
+                   help="compact .npz or an existing .pth (orbax "
+                        "directories: the JAX package's export-ckpt)")
+    p.add_argument("--out", required=True, help="output .pth path")
+    p.add_argument("--variant", default="v2", choices=["v1", "v2", "v3"])
+    p.add_argument("--resnet_layers", type=int, default=34,
+                   choices=[34, 50])
+    p.add_argument("--code_length", type=int, default=16)
+    p.add_argument("--crop", type=int, default=256,
+                   help="the JAX package's orbax init size; a .npz or "
+                        ".pth needs none")
+    p.add_argument("--step", type=int, default=0)
+    p.add_argument("--best_score", type=float, default=0.0)
+    p.add_argument("--base", type=int, default=2,
+                   help="divide_number_each_itration; != 2 selects the "
+                        "non-binary head layout")
+    _add_device(p)
+
+    p = sub.add_parser(
+        "model-cost",
+        help="params and FLOPs of one eval forward (the reference's thop "
+             "harness, model/BinaryCodeNet.py:199-205; FLOPs by "
+             "torch.utils.flop_counter)")
+    p.add_argument("--variant", default="v2", choices=["v1", "v2", "v3"])
+    p.add_argument("--resnet_layers", type=int, default=34,
+                   choices=[34, 50])
+    p.add_argument("--code_length", type=int, default=16)
+    p.add_argument("--crop", type=int, default=256)
+    p.add_argument("--no_concat", action="store_true")
+    _add_device(p)
+
+
+def _export_ckpt(args, device) -> int:
+    from zebrapose_tpu_torch.eval.runner import load_model_variables
+    from zebrapose_tpu_torch.models.convert import (
+        save_reference_checkpoint,
+        state_dict_to_variables,
+    )
+    from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
+
+    nonbinary = args.base != 2
+    if args.ckpt_file.endswith(".npz"):
+        from zebrapose_tpu_torch.utils.compact_ckpt import load_compact
+        variables, _ = load_compact(args.ckpt_file)
+    else:
+        variables = state_dict_to_variables(
+            load_model_variables(args.ckpt_file, args.variant,
+                                 resnet_layers=args.resnet_layers,
+                                 nonbinary=nonbinary),
+            args.variant, nonbinary=nonbinary,
+            resnet_layers=args.resnet_layers)
+    save_reference_checkpoint(
+        args.out, variables, iteration_step=args.step,
+        best_score=args.best_score, variant=args.variant,
+        nonbinary=nonbinary, resnet_layers=args.resnet_layers)
+    # the written file strict-loads into the model it names, on --device
+    model = ZebraPoseNet(binary_code_length=args.code_length, base=args.base,
+                         variant=args.variant,
+                         resnet_layers=args.resnet_layers).to(device)
+    model.load_state_dict(load_model_variables(
+        args.out, args.variant, resnet_layers=args.resnet_layers,
+        nonbinary=nonbinary), strict=True)
+    print(f"exported {args.ckpt_file} -> {args.out}")
+    return 0
+
+
+def _model_cost(args, device) -> int:
+    import torch
+
+    from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
+    from zebrapose_tpu_torch.utils.profiling import model_cost
+
+    model = ZebraPoseNet(binary_code_length=args.code_length,
+                         variant=args.variant,
+                         resnet_layers=args.resnet_layers,
+                         concat=not args.no_concat)
+    model = model.to(device).to(memory_format=torch.channels_last)
+    cost = model_cost(model, torch.zeros(
+        (1, args.crop, args.crop, 3), device=device))
+    print(json.dumps({"params_M": round(cost["params"] / 1e6, 3),
+                      "flops_G": round(cost["flops"] / 1e9, 3)}))
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="zebrapose_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_train(sub)
     _add_fleet(sub)
     _add_serving(sub)
+    _add_tools(sub)
 
     p_test = sub.add_parser("test", help="evaluate one object (test.py)")
     p_test.add_argument("--cfg", required=True, help="reference-format config")
@@ -509,7 +644,10 @@ def main(argv=None):
     p_test.add_argument("--ignore_bit", type=int, default=0)
     p_test.add_argument("--variant", default="v2",
                         choices=["v1", "v2", "v3"])
-    p_test.add_argument("--debug", action="store_true")
+    p_test.add_argument("--debug", action="store_true",
+                        help="write the reference's debug artifacts (mask "
+                             "panels, code-error grids, pose outlines, the "
+                             "refiner's frames) under <run dir>/debug")
     p_test.add_argument("--batch_size", type=int, default=16)
     p_test.add_argument("--max_samples", type=int, default=None)
     p_test.add_argument("--mask_rcnn", action="store_true",
@@ -621,6 +759,10 @@ def main(argv=None):
     if args.command in ("serve-exported", "serve-exported-fleet"):
         from zebrapose_tpu_torch.config import ZebraConfig
         return _serve_exported(args, ZebraConfig.from_file(args.cfg), device)
+    if args.command == "model-cost":
+        return _model_cost(args, device)
+    if args.command == "export-ckpt":
+        return _export_ckpt(args, device)
     if args.command == "score-bop":
         from zebrapose_tpu_torch.eval.bop_score import score_csv
         res = score_csv(args.csv, args.bop_path, args.dataset,
@@ -642,9 +784,21 @@ def main(argv=None):
                   "command": args.command, "device": str(device)})
     if args.command == "test":
         items["ignore_bit"] = args.ignore_bit
+    if args.command == "visualize":
+        items["frame"] = f"{args.scene}/{args.im}"
     run_dir = prepare_eval_dir(args.output_dir, items)
     with TeeOutput(os.path.join(run_dir, "log.txt")):
         print(f"eval run dir: {run_dir}")
+        if args.command == "visualize":
+            from zebrapose_tpu_torch.eval.runner import run_test
+            metrics = run_test(
+                cfg, args.obj_name, args.ckpt_file, run_dir,
+                ignore_bit=args.ignore_bit, variant=args.variant,
+                debug=True, batch_size=1, mask_rcnn=args.mask_rcnn,
+                frame=(args.scene, args.im), device=device)
+            print(json.dumps(metrics, indent=2))
+            print(f"debug artifacts: {os.path.join(run_dir, 'debug')}")
+            return 0
         if args.command == "test":
             from zebrapose_tpu_torch.eval.runner import run_test
             from zebrapose_tpu_torch.utils.profiling import profile_trace

@@ -450,3 +450,21 @@ def get_bop_challenge_test_data(bop_dir: str, dataset: str,
     return BopSamples(dataset_dir, os.path.join(dataset_dir, data_folder),
                       model_plys, model_info, model_ids, rgb, mask, maskv,
                       gts, gtis, cams, cam_global)
+
+
+def ycbv_select_keyframes(samples: BopSamples, obj_id: int,
+                          keyframe_path: str) -> List[int]:
+    """Indices of the object's samples on the YCB-V keyframe list
+    (reference get_detection_results.ycbv_select_keyframe; the port's
+    copy of JAX `bop_io.py::ycbv_select_keyframes`, which no path
+    calls: `run_test` uses `detections.keyframe_indices`)."""
+    with open(keyframe_path) as f:
+        keyframes = {line.strip() for line in f if line.strip()}
+    keep = []
+    for i, fn in enumerate(samples.rgb_files[obj_id - 1]):
+        parts = fn.split(os.sep)
+        scene = int(parts[-3])
+        im = int(os.path.splitext(parts[-1])[0])
+        if f"{scene:04d}/{im:06d}" in keyframes:
+            keep.append(i)
+    return keep

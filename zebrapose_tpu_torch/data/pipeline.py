@@ -14,12 +14,17 @@ host (evaluation bboxes, or in training GT bboxes jittered per draw),
 nothing per-pixel, PNGs decoded by the port's own reader
 (`data/png.py`) where the JAX package calls cv2. `MixedBatchIterator`
 mixes two training splits with a prefetch thread and a reading pool.
-The device-resident input modes (`DeviceDatasetCache`,
-`DevicePrefetchIterator`) are not ported yet (ROADMAP.md).
+The training input modes beside it: `DeviceDatasetCache` +
+`CachedBatchIterator` + `gather_preprocess_batch` (the splits' pixels
+uploaded once, batches gathered on the device; `train --input_mode
+device_cache`) and `DevicePrefetchIterator` (the next batch copied to
+the device on a side stream while the step runs; `--input_mode
+prefetch`).
 """
 
 from __future__ import annotations
 
+import bisect
 import os
 import queue
 import threading
@@ -468,3 +473,223 @@ class MixedBatchIterator:
         self._thread.join(timeout=10.0)
         if self._pool is not None:
             self._pool.shutdown(wait=False)
+
+
+# ---------------------------------------------------------------------------
+# Device-resident training input
+# ---------------------------------------------------------------------------
+
+FEED_KEYS = ("rgb", "label", "mask", "entire_mask", "roi_param", "valid")
+
+
+class DeviceDatasetCache:
+    """The full-resolution pixels of one or more (concatenated)
+    CropDatasetHosts, uploaded to device memory once as uint8; a step
+    then sends only int indices and roi params and gathers its batch on
+    the device (`gather_preprocess_batch`). Port of JAX
+    `pipeline.py::DeviceDatasetCache` on one device.
+
+    Costs ~2.46 MB of device memory a 480x640 sample (rgb + label + two
+    masks): for per-object real splits, not 50k-image PBR trees (the
+    streaming `MixedBatchIterator` stays the default). Raises on mixed
+    image sizes. `nbytes` is the upload's size."""
+
+    PIXEL_KEYS = ("rgb", "label", "mask", "entire_mask")
+
+    def __init__(self, datasets: Sequence[CropDatasetHost], device):
+        self.datasets = [d for d in datasets if d is not None]
+        if not self.datasets:
+            raise ValueError("need at least one dataset")
+        self.offsets = [0]
+        for ds in self.datasets:
+            self.offsets.append(self.offsets[-1] + len(ds))
+        host: Dict[str, np.ndarray] = {}
+        hw = None
+        row = 0
+        for ds in self.datasets:
+            for i in range(len(ds)):
+                px = ds.get_pixels(i)
+                if hw is None:
+                    hw = px["rgb"].shape[:2]
+                    host = {k: np.empty((self.offsets[-1],) + px[k].shape,
+                                        px[k].dtype)
+                            for k in self.PIXEL_KEYS}
+                elif px["rgb"].shape[:2] != hw:
+                    raise ValueError(
+                        f"mixed image sizes {hw} vs {px['rgb'].shape[:2]}"
+                        " -- the device cache needs one image geometry")
+                for k in self.PIXEL_KEYS:
+                    host[k][row] = px[k]
+                row += 1
+        self.image_hw = hw
+        self.arrays = {k: torch.from_numpy(v).to(device)
+                       for k, v in host.items()}
+        self.nbytes = sum(v.nbytes for v in host.values())
+
+    def __len__(self):
+        return self.offsets[-1]
+
+    def params(self, flat_indices: Sequence[int]) -> Dict[str, np.ndarray]:
+        """Host-side per-draw bookkeeping (roi param, final bbox, pose,
+        K, valid) for concatenated indices."""
+        rows = []
+        for fi in flat_indices:
+            k = bisect.bisect_right(self.offsets, int(fi)) - 1
+            rows.append(self.datasets[k].get_params(
+                int(fi) - self.offsets[k], self.image_hw))
+        return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+class CachedBatchIterator:
+    """Mixed real + PBR batch draws against a DeviceDatasetCache: only
+    indices and roi params (the split of `MixedBatchIterator`, no worker
+    threads: there are no bytes to read). Indices come from
+    `default_rng(seed)` in JAX's order, so `idx` equals JAX's at the
+    same seed."""
+
+    def __init__(self, cache: DeviceDatasetCache, batch_size: int,
+                 second_dataset_ratio: float = 0.75, seed: int = 0):
+        self.cache = cache
+        if len(cache.datasets) > 1 and len(cache.datasets[1]) > 0:
+            self.n2 = int(batch_size * second_dataset_ratio)
+        else:
+            self.n2 = 0
+        self.n1 = batch_size - self.n2
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        o = self.cache.offsets
+        idx = self.rng.integers(0, o[1], size=self.n1)
+        if self.n2:
+            idx = np.concatenate([idx, self.rng.integers(o[1], o[2],
+                                                         size=self.n2)])
+        p = self.cache.params(idx)
+        return {"idx": idx.astype(np.int32), "roi_param": p["roi_param"],
+                "valid": p["valid"]}
+
+    def close(self):
+        pass
+
+
+class DevicePrefetchIterator:
+    """Wrap a host batch iterator so that each feed reaches the device one
+    step ahead: a worker thread takes the next feed, pins its arrays and
+    copies them with non_blocking=True on a side CUDA stream, recording
+    an event after the copies, so the copy of batch k+1 overlaps step k.
+    The consumer's `__next__` makes the current stream wait on that
+    event and calls `record_stream` on every tensor it hands out, so the
+    caching allocator does not give their memory to a later copy while
+    the step still reads them. Port of JAX
+    `pipeline.py::DevicePrefetchIterator` (`shard_batch` one step ahead)
+    on one device.
+
+    The worker sets the device in its own thread; its exception is
+    raised from `__next__`; `close()` stops it and closes the inner
+    iterator. On the CPU it is the same queue with no stream. Feeds are
+    dicts of tensors on `device` (`device_resident` marks this)."""
+
+    device_resident = True
+
+    def __init__(self, inner, device, keys: Sequence[str] = FEED_KEYS,
+                 depth: int = 2):
+        self.inner = inner
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the worker thread sets it: an index, not the current one
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, args=(keys,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=1.0)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _worker(self, keys):
+        try:
+            cuda = self.device.type == "cuda"
+            if cuda:
+                torch.cuda.set_device(self.device)
+                side = torch.cuda.Stream(self.device)
+            while not self._stop.is_set():
+                raw = next(self.inner)
+                if not cuda:
+                    feed = {k: torch.as_tensor(np.asarray(raw[k]))
+                            for k in keys}
+                    if not self._put((feed, None)):
+                        return
+                    continue
+                pinned = {k: torch.from_numpy(
+                    np.ascontiguousarray(raw[k])).pin_memory() for k in keys}
+                with torch.cuda.stream(side):
+                    feed = {k: v.to(self.device, non_blocking=True)
+                            for k, v in pinned.items()}
+                    done = torch.cuda.Event()
+                    done.record(side)
+                if not self._put((feed, done)):
+                    return
+        except BaseException as e:  # handed to the consumer, re-raised
+            self._put((e, None))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        feed, done = self._q.get()
+        if isinstance(feed, BaseException):
+            raise feed
+        if done is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            for v in feed.values():
+                v.record_stream(stream)
+        return feed
+
+    def close(self):
+        self._stop.set()
+        try:  # unblock a worker stuck on a full queue
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=10.0)
+        if hasattr(self.inner, "close"):
+            self.inner.close()
+
+
+def gather_preprocess_batch(cache_arrays: Dict[str, torch.Tensor],
+                            idx: torch.Tensor, roi_param: torch.Tensor,
+                            valid: torch.Tensor,
+                            generator: Optional[torch.Generator] = None,
+                            crop_img: int = 256, crop_gt: int = 128,
+                            base: int = 2, n_bits: int = 16,
+                            resize_method: str = "crop_square_resize",
+                            use_pepper_salt: bool = False,
+                            use_motion_blur: bool = False,
+                            draws: Optional[AugmentDraws] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """A training batch from a DeviceDatasetCache's arrays: the drawn
+    samples gathered on the device (`index_select`, still uint8), then
+    `preprocess_batch(is_train=True)` with `generator` (or `draws`).
+    `idx`, `roi_param` and `valid` are moved to the arrays' device."""
+    dev = cache_arrays["rgb"].device
+    idx = torch.as_tensor(idx).to(dev, torch.int64)
+    raw = {k: torch.index_select(cache_arrays[k], 0, idx)
+           for k in DeviceDatasetCache.PIXEL_KEYS}
+    raw["roi_param"] = torch.as_tensor(roi_param).to(dev)
+    raw["valid"] = torch.as_tensor(valid).to(dev)
+    return preprocess_batch(
+        raw, crop_img=crop_img, crop_gt=crop_gt, base=base, n_bits=n_bits,
+        resize_method=resize_method, is_train=True,
+        use_pepper_salt=use_pepper_salt, use_motion_blur=use_motion_blur,
+        generator=generator, draws=draws)

@@ -32,6 +32,7 @@ from zebrapose_tpu_torch.codec.lut import (
 )
 from zebrapose_tpu_torch.data.bop_writer import parse_sample_ids, write_csv
 from zebrapose_tpu_torch.data.pipeline import (
+    FEED_KEYS,
     CropDatasetHost,
     preprocess_batch,
 )
@@ -145,9 +146,6 @@ def make_eval_step(forward_fn: Callable[[Dict[str, torch.Tensor]],
 
     step.lut = (lut_points, lut_valid)
     return step
-
-
-_FEED_KEYS = ("rgb", "label", "mask", "entire_mask", "roi_param", "valid")
 
 
 def batch_generator(seed: int, start: int, device) -> torch.Generator:
@@ -283,7 +281,7 @@ def run_inference(dataset: CropDatasetHost, eval_step,
     with prefetched(collate, range(0, n, batch_size), num_workers,
                     clock) as batches:
         for start, (m, raw) in batches:
-            feed = {k: raw[k] for k in _FEED_KEYS}
+            feed = {k: raw[k] for k in FEED_KEYS}
             kw = ({"draws": draws_for(start)} if draws_for is not None
                   else {"generator": batch_generator(seed, start, dev)})
             t0 = time.perf_counter()

@@ -28,9 +28,10 @@ With `int8` the members' convs are the int8 serving convs
 (`models/layers.py`) and their forwards run in turn
 (`make_fleet_eval_step(vmap_forward=False)`): each member's activation
 scale is then taken over its own crops, as under JAX's vmap, and the
-int8 kernels need no batching rule. Refused, queued in ROADMAP.md: debug
-dumps (A7). The port drives one card, so there is no model-axis mesh
-(A8).
+int8 kernels need no batching rule. `run_test_fleet(debug=True)` writes
+each object's debug artifact set under `debug/<obj_name>/`
+(`eval/runner.py::dump_debug_set`). The port drives one card, so there
+is no model-axis mesh (A8).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import torch
 from torch.func import functional_call, vmap
 
 from zebrapose_tpu_torch.codec.lut import CorrespondenceLUT
-from zebrapose_tpu_torch.data.pipeline import preprocess_batch
+from zebrapose_tpu_torch.data.pipeline import FEED_KEYS, preprocess_batch
 from zebrapose_tpu_torch.eval.evaluate import _pad_to, prefetched
 from zebrapose_tpu_torch.ops.binarize import code_from_logits, mask_from_logits
 from zebrapose_tpu_torch.ops.pnp import (
@@ -54,9 +55,6 @@ from zebrapose_tpu_torch.ops.pnp import (
     decode_to_pose_batch,
 )
 from zebrapose_tpu_torch.utils.device import resolve_device
-
-_UNPORTED = "is not ported yet (see ROADMAP.md, queue A)"
-
 
 def stack_luts(luts: Sequence[CorrespondenceLUT]
                ) -> Tuple[np.ndarray, np.ndarray]:
@@ -196,9 +194,6 @@ def make_fleet_eval_step(forward_fn: Callable, lut_points, lut_valid,
 
     step.luts = (lp, lv)
     return step
-
-
-FEED_KEYS = ("rgb", "label", "mask", "entire_mask", "roi_param", "valid")
 
 
 def fleet_infer(datasets, fleet_step, variables, batch_size: int,
@@ -341,7 +336,8 @@ def _fleet_model(cfg, variant: str, ckpt_files: Sequence[str], dev,
 
 
 def _fleet_step(cfg, model, lp, lv, pnp_cfg, mask_rcnn: bool,
-                return_masks: bool, dev, int8: bool = False):
+                return_masks: bool, dev, int8: bool = False,
+                return_codes: bool = False):
     return make_fleet_eval_step(
         model_forward(model), lp, lv,
         crop_img=cfg.BoundingBox_CropSize_image,
@@ -350,7 +346,7 @@ def _fleet_step(cfg, model, lp, lv, pnp_cfg, mask_rcnn: bool,
         n_bits=cfg.number_of_itration, resize_method=cfg.resize_method,
         loss_type=cfg.BinaryCode_Loss_Type, pnp_cfg=pnp_cfg or PnPConfig(),
         mask_from_dataset=mask_rcnn, return_masks=return_masks,
-        vmap_forward=not int8, device=dev)
+        return_codes=return_codes, vmap_forward=not int8, device=dev)
 
 
 def _share_slice_buffer(datasets) -> None:
@@ -376,8 +372,12 @@ def run_test_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
     refinement per object on the fleet's own masks (`refine_poses`), as
     `run_test` does; mask_rcnn takes each object's detector RLE in place
     of its mask head; roi_slice imposes the fleet-wide max buffer; int8
-    runs the int8 serving convs (module docstring). Prints a
-    `timing {...}` line (seconds by stage)."""
+    runs the int8 serving convs (module docstring). debug writes each
+    object's artifact set (mask panel, code-error grid, pose outlines;
+    reference test.py:315-441) under `debug/<obj_name>/` and its
+    refiner's frames under `debug/<obj_name>/refine`, as `run_test
+    --debug` does for one object. Prints a `timing {...}` line (seconds
+    by stage)."""
     from zebrapose_tpu_torch.data import bop_io
     from zebrapose_tpu_torch.data.bop_writer import (
         merge_csv,
@@ -387,13 +387,11 @@ def run_test_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
     from zebrapose_tpu_torch.eval.evaluate import pose_errors, summarize
     from zebrapose_tpu_torch.eval.runner import (
         dataset_image_hw,
+        dump_debug_set,
         prepare_object_eval,
         refine_poses,
     )
 
-    if debug:
-        raise NotImplementedError("debug dumps (utils/visualize.py) "
-                                  + _UNPORTED + " (A7)")
     if len(ckpt_files) != len(obj_names):
         raise ValueError("need one checkpoint per object")
     dev = resolve_device(device)
@@ -413,14 +411,14 @@ def run_test_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
     t1 = time.perf_counter()
     model, variables = _fleet_model(cfg, variant, ckpt_files, dev, int8)
     lp, lv = stack_luts([oe.lut for oe in oes])
-    step = _fleet_step(cfg, model, lp, lv, pnp_cfg, mask_rcnn, cfg.refine,
-                       dev, int8)
+    step = _fleet_step(cfg, model, lp, lv, pnp_cfg, mask_rcnn,
+                       cfg.refine or debug, dev, int8, return_codes=debug)
     t2 = time.perf_counter()
 
     timing: Dict[str, float] = {}
     out = fleet_infer([oe.dataset for oe in oes], step, variables,
-                      batch_size, collect_masks=cfg.refine, device=dev,
-                      timing=timing)
+                      batch_size, collect_masks=cfg.refine or debug,
+                      collect_codes=debug, device=dev, timing=timing)
     Rs, ts, ok = out[:3]
     t3 = time.perf_counter()
     os.makedirs(output_dir, exist_ok=True)
@@ -431,7 +429,13 @@ def run_test_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
                 oe.dataset, Rs[i], ts[i], ok[i], out[3][i], out[4][i],
                 oe.vertices, oe.mesh["faces"].astype(np.int32),
                 dataset_image_hw(oe.samples, oe.dataset),
-                cfg.BoundingBox_CropSize_GT)
+                cfg.BoundingBox_CropSize_GT,
+                debug_dir=(os.path.join(output_dir, "debug", name, "refine")
+                           if debug else None))
+        if debug:
+            dump_debug_set(os.path.join(output_dir, "debug", name), cfg,
+                           oe.dataset, oe.mesh, oe.vertices, out[3][i],
+                           out[5][i], Rs[i], ts[i], ok[i])
         Rs[i][~ok[i]] = np.eye(3)       # reference: identity R / zero t
         ts[i][~ok[i]] = 0
         errors = pose_errors(oe.dataset, Rs[i], ts[i], ok[i], oe.vertices,

@@ -2,17 +2,16 @@
 
 Port of `zebrapose_tpu/eval/runner.py` (`load_model_variables`,
 `extract_visible_contour`, `refine_poses`, `dataset_image_hw`,
-`ObjectEval`, `prepare_object_eval`, `run_test`). Assembles dataset +
-detections + LUT + model + eval program from a ZebraConfig and runs the
-evaluation on the device (CUDA unless "cpu" is asked for), with the
-optional contour refinement pass on the host (`cfg.refine`: the native
-border follower and Gauss-Newton refiner, `native/`).
+`ObjectEval`, `prepare_object_eval`, `dump_debug_set`, `run_test`).
+Assembles dataset + detections + LUT + model + eval program from a
+ZebraConfig and runs the evaluation on the device (CUDA unless "cpu" is
+asked for), with the optional contour refinement pass on the host
+(`cfg.refine`: the native border follower and Gauss-Newton refiner,
+`native/`) and the `debug` dumps (`utils/visualize.py`).
 
 `int8` runs the int8 serving convs (`models/layers.py`, the kernels of
-`ops/int8_conv.py` on the card). Refused with NotImplementedError, each
-queued in ROADMAP.md (queue A): orbax checkpoint directories (A7:
-convert them with the JAX package's `export-ckpt`) and `debug` dumps
-(A7, `utils/visualize.py`).
+`ops/int8_conv.py` on the card). Orbax checkpoint directories are
+refused by design: convert one with the JAX package's `export-ckpt`.
 """
 
 from __future__ import annotations
@@ -44,8 +43,6 @@ from zebrapose_tpu_torch.ops.pnp import PnPConfig
 from zebrapose_tpu_torch.ops.roi import map_pixels_to_original
 from zebrapose_tpu_torch.utils.device import resolve_device
 
-_UNPORTED = "is not ported yet (see ROADMAP.md, queue A)"
-
 
 def load_model_variables(ckpt_file: str, variant: str = "v2",
                          resnet_layers: int = 34,
@@ -70,9 +67,10 @@ def load_model_variables(ckpt_file: str, variant: str = "v2",
         ckpt = torch.load(ckpt_file, map_location="cpu", weights_only=True)
         return reference_state_dict(ckpt.get("model_state_dict", ckpt))
     raise NotImplementedError(
-        f"checkpoint {ckpt_file!r}: orbax checkpoint directories "
-        + _UNPORTED + " (A7); convert one with `python -m zebrapose_tpu "
-        "export-ckpt` on a JAX host and pass the .pth, or pass a .npz")
+        f"checkpoint {ckpt_file!r}: orbax checkpoint directories are not "
+        "read by the port (see ROADMAP.md); convert one with `python -m "
+        "zebrapose_tpu export-ckpt` on a JAX host and pass the .pth, or "
+        "pass a .npz")
 
 
 def load_model(cfg: ZebraConfig, ckpt_file: str, variant: str = "v2",
@@ -98,10 +96,11 @@ def load_model(cfg: ZebraConfig, ckpt_file: str, variant: str = "v2",
 def build_eval_step(cfg: ZebraConfig, model: ZebraPoseNet, lut,
                     pnp_cfg: PnPConfig, ignore_bit: int = 0,
                     mask_rcnn: bool = False, return_masks: bool = False,
-                    device=None):
+                    return_codes: bool = False, device=None):
     """run_test's batch program for `model` (make_eval_step with the
     config's crop sizes, code and resize method); `return_masks` adds the
-    (visible, entire) masks the refinement pass reads."""
+    (visible, entire) masks the refinement pass reads, `return_codes`
+    the code bits of the debug dumps."""
     return make_eval_step(
         lambda b: model(b["image"]), lut,
         crop_img=cfg.BoundingBox_CropSize_image,
@@ -110,7 +109,8 @@ def build_eval_step(cfg: ZebraConfig, model: ZebraPoseNet, lut,
         n_bits=cfg.number_of_itration, resize_method=cfg.resize_method,
         loss_type=cfg.BinaryCode_Loss_Type, pnp_cfg=pnp_cfg,
         ignore_bits=ignore_bit, return_masks=return_masks,
-        mask_from_dataset=mask_rcnn, preprocess_gt=False, device=device)
+        return_codes=return_codes, mask_from_dataset=mask_rcnn,
+        preprocess_gt=False, device=device)
 
 
 def extract_visible_contour(entire_mask: np.ndarray,
@@ -213,14 +213,18 @@ def prepare_object_eval(cfg: ZebraConfig, obj_name: str,
                         max_samples: Optional[int] = None,
                         mask_rcnn: bool = False,
                         roi_slice: bool = False,
-                        samples=None) -> ObjectEval:
+                        samples=None,
+                        frame: Optional[tuple] = None) -> ObjectEval:
     """Assemble one object's eval inputs: BOP walk (+BOP-challenge
     targets), detection ingestion (+ycbv keyframes), dataset, LUT, mesh
     geometry (test.py:85-240 setup).
 
     samples: a walked split to share between objects (the walk does not
     depend on the object outside BOP-challenge mode, whose walk is
-    rebuilt per object; the fleet walks once for its K objects)."""
+    rebuilt per object; the fleet walks once for its K objects).
+    frame: (scene_id, im_id), the eval restricted to that one frame (the
+    reference's test_for_one_image.py); ValueError when the walk does
+    not hold it."""
     obj_id = lookup_obj_id(cfg.dataset_name, obj_name)
 
     if cfg.bop_challange:
@@ -249,6 +253,21 @@ def prepare_object_eval(cfg: ZebraConfig, obj_name: str,
     elif mask_rcnn:
         raise ValueError("mask_rcnn requires Detection_reaults with "
                          "RLE segmentations")
+    if frame is not None:
+        ids = parse_sample_ids(lists[0])
+        keep = [i for i, (s, im) in enumerate(ids)
+                if (s, im) == (int(frame[0]), int(frame[1]))]
+        if not keep:
+            raise ValueError(
+                f"frame scene={frame[0]} im={frame[1]} not found in "
+                f"{cfg.test_folder} (object {obj_name}); "
+                f"{len(ids)} frames walked")
+        lists = [[lst[i] for i in keep] for lst in lists]
+        if det_bboxes is not None:
+            det_bboxes = [det_bboxes[i] for i in keep]
+            scores = [scores[i] for i in keep]
+        if det_segs is not None:
+            det_segs = [det_segs[i] for i in keep]
     if max_samples is not None:
         lists = [lst[:max_samples] for lst in lists]
         if det_bboxes is not None:
@@ -276,6 +295,50 @@ def prepare_object_eval(cfg: ZebraConfig, obj_name: str,
         is_symmetric(cfg.dataset_name, obj_name), samples)
 
 
+def dump_debug_set(dbg_dir: str, cfg: ZebraConfig, dataset: CropDatasetHost,
+                   mesh, vertices, vis_masks, pred_codes, Rs, ts, ok,
+                   max_samples: int = 16) -> None:
+    """The debug artifact set of the first `max_samples` samples
+    (reference test.py:315-441; JAX runner.py:261-296): the predicted /
+    GT mask panel, the per-bit code-error grid, and the predicted and GT
+    pose outlines on the crop (`utils/visualize.py::dump_debug_sample`).
+    Shared by run_test --debug and run_test_fleet --debug (a
+    subdirectory an object)."""
+    from zebrapose_tpu_torch.codec.surface_code import (
+        class_id_to_code,
+        rgb_to_class_id,
+    )
+    from zebrapose_tpu_torch.utils.visualize import (
+        dump_debug_sample,
+        host_crop,
+    )
+
+    os.makedirs(dbg_dir, exist_ok=True)
+    faces = mesh.get("faces")
+    n_code_bits = pred_codes.shape[-1]
+    sz = cfg.BoundingBox_CropSize_GT
+    for i in range(min(len(dataset), max_samples)):
+        raw = dataset.get_raw(i)
+        fb = raw["final_bbox"]
+        crop_bgr = host_crop(raw["rgb"], fb, sz)
+        gt_mask = host_crop(raw["mask"], fb, sz,
+                            nearest=True).astype(np.float32) / 255.0
+        label_crop = host_crop(raw["label"], fb, sz, nearest=True)
+        gt_code = class_id_to_code(
+            rgb_to_class_id(torch.from_numpy(label_crop.astype(np.int32))),
+            base=cfg.divide_number_each_itration,
+            n_digits=cfg.number_of_itration).numpy()[..., :n_code_bits]
+        has_gt = dataset.gts[i] is not None
+        dump_debug_sample(
+            dbg_dir, i, crop_bgr, vis_masks[i], gt_mask, pred_codes[i],
+            gt_code, vertices,
+            faces.astype(np.int32) if faces is not None else None,
+            raw["K"].astype(np.float64), Rs[i], ts[i], fb,
+            R_gt=raw["R"] if has_gt else None,
+            t_gt=raw["t"] if has_gt else None,
+            render_pred=bool(ok[i]))
+
+
 def run_test(cfg: ZebraConfig, obj_name: str, ckpt_file: str,
              output_dir: str, ignore_bit: int = 0, variant: str = "v2",
              debug: bool = False, batch_size: int = 16,
@@ -284,39 +347,42 @@ def run_test(cfg: ZebraConfig, obj_name: str, ckpt_file: str,
              mask_rcnn: bool = False,
              int8: bool = False,
              roi_slice: bool = False,
+             frame: Optional[tuple] = None,
              device=None) -> Dict[str, float]:
     """Single-instance evaluation of one object (test.py main): metrics,
-    plus the BOP CSV (and without refinement add_err.txt and
+    plus the BOP CSV (and without refinement or debug add_err.txt and
     ADD_result.txt) in `output_dir` and the metrics appended to its
     log.txt.
 
     cfg.refine: the contour refinement pass (test.py:276-313) runs on
     the host over the poses, the visible masks and the entire masks
     (`refine_poses`), then ADD / ADD-S and the CSV as the JAX package's
-    refine branch writes them. mask_rcnn: the detector's RLE
-    segmentation replaces the network's mask head (reference
-    test_for_mask_rcnn.py), and refinement reads the dataset's entire
-    mask. roi_slice: the host ships only each frame's clamped
-    square-bbox bytes (bit-identical crops). int8: the int8 serving
-    convs (same checkpoint; per-channel weight and dynamic per-tensor
-    activation quantization, `models/layers.py::_int8_conv`)."""
-    if debug:
-        raise NotImplementedError(
-            "debug dumps (utils/visualize.py, and the refiner's debug "
-            "frames under --debug) " + _UNPORTED + " (A7)")
+    refine branch writes them. debug: the same branch with the code
+    bits too, the refiner's per-iteration frames under
+    `<output_dir>/debug/refine`, then `dump_debug_set` at
+    `<output_dir>/debug`; the poses and the CSV are those of the run
+    without debug. frame: (scene, im), the one frame of `visualize`.
+    mask_rcnn: the detector's RLE segmentation replaces the network's
+    mask head (reference test_for_mask_rcnn.py), and refinement reads
+    the dataset's entire mask. roi_slice: the host ships only each
+    frame's clamped square-bbox bytes (bit-identical crops). int8: the
+    int8 serving convs (same checkpoint; per-channel weight and dynamic
+    per-tensor activation quantization, `models/layers.py::_int8_conv`)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     oe = prepare_object_eval(cfg, obj_name, max_samples=max_samples,
-                             mask_rcnn=mask_rcnn, roi_slice=roi_slice)
+                             mask_rcnn=mask_rcnn, roi_slice=roi_slice,
+                             frame=frame)
     t1 = time.perf_counter()
     model = load_model(cfg, ckpt_file, variant, device=dev, quant=int8)
     step = build_eval_step(cfg, model, oe.lut, pnp_cfg or PnPConfig(),
                            ignore_bit=ignore_bit, mask_rcnn=mask_rcnn,
-                           return_masks=cfg.refine, device=dev)
+                           return_masks=cfg.refine or debug,
+                           return_codes=debug, device=dev)
     t2 = time.perf_counter()
-    if cfg.refine:
-        metrics, timing = _refined_eval(cfg, oe, step, obj_name, output_dir,
-                                        batch_size, dev)
+    if cfg.refine or debug:
+        metrics, timing = _masked_eval(cfg, oe, step, obj_name, output_dir,
+                                       batch_size, dev, debug)
     else:
         res = evaluate_object(
             oe.dataset, step, oe.vertices, oe.diameter, oe.symmetric,
@@ -324,7 +390,7 @@ def run_test(cfg: ZebraConfig, obj_name: str, ckpt_file: str,
             scores=oe.scores, batch_size=batch_size, device=dev)
         metrics, timing = res.metrics, res.timing
     # where this run's time went, in seconds (evaluate_object's stages,
-    # or those of the refined evaluation)
+    # or those of the refined / debug evaluation)
     print("timing " + json.dumps(dict(
         prepare_s=t1 - t0, load_model_s=t2 - t1, **timing)))
     with open(os.path.join(output_dir, "log.txt"), "a") as f:
@@ -333,26 +399,30 @@ def run_test(cfg: ZebraConfig, obj_name: str, ckpt_file: str,
     return metrics
 
 
-def _refined_eval(cfg: ZebraConfig, oe: ObjectEval, step, obj_name: str,
-                  output_dir: str, batch_size: int, dev):
-    """run_test's refine branch (JAX runner.py:344-391): inference with
-    the masks, `refine_poses` over the successful samples, failed
-    samples set to identity and zero, ADD / ADD-S and the BOP CSV.
-    Returns (metrics, seconds by stage with `refined`, the count of
-    refined poses)."""
+def _masked_eval(cfg: ZebraConfig, oe: ObjectEval, step, obj_name: str,
+                 output_dir: str, batch_size: int, dev, debug: bool):
+    """run_test's refine / debug branch (JAX runner.py:344-391):
+    inference with the masks (and with debug the codes), `refine_poses`
+    over the successful samples when cfg.refine, failed samples set to
+    identity and zero, ADD / ADD-S, the BOP CSV, then with debug the
+    artifact set. Returns (metrics, seconds by stage, with `refined`,
+    the count of refined poses, when cfg.refine)."""
     timing: Dict[str, float] = {}
-    Rs, ts, ok, vis_masks, ent_masks = run_inference(
+    Rs, ts, ok, vis_masks, ent_masks, *codes = run_inference(
         oe.dataset, step, batch_size, device=dev, timing=timing,
-        collect_masks=True)
-    t0 = time.perf_counter()
-    refined = 0
-    if "faces" in oe.mesh and len(oe.dataset) > 0:
-        refined = refine_poses(
-            oe.dataset, Rs, ts, ok, vis_masks, ent_masks, oe.vertices,
-            oe.mesh["faces"].astype(np.int32),
-            dataset_image_hw(oe.samples, oe.dataset),
-            cfg.BoundingBox_CropSize_GT)
-    timing.update(refine_s=time.perf_counter() - t0, refined=refined)
+        collect_masks=True, collect_codes=debug)
+    dbg_dir = os.path.join(output_dir, "debug")
+    if cfg.refine:
+        t0 = time.perf_counter()
+        refined = 0
+        if "faces" in oe.mesh and len(oe.dataset) > 0:
+            refined = refine_poses(
+                oe.dataset, Rs, ts, ok, vis_masks, ent_masks, oe.vertices,
+                oe.mesh["faces"].astype(np.int32),
+                dataset_image_hw(oe.samples, oe.dataset),
+                cfg.BoundingBox_CropSize_GT,
+                debug_dir=os.path.join(dbg_dir, "refine") if debug else None)
+        timing.update(refine_s=time.perf_counter() - t0, refined=refined)
     Rs[~ok] = np.eye(3)
     ts[~ok] = 0
     t0 = time.perf_counter()
@@ -370,4 +440,9 @@ def _refined_eval(cfg: ZebraConfig, oe: ObjectEval, step, obj_name: str,
               [t.reshape(3, 1) for t in ts],
               oe.scores if oe.scores is not None else [1.0] * len(ts))
     timing["write_s"] = time.perf_counter() - t0
+    if debug:
+        t0 = time.perf_counter()
+        dump_debug_set(dbg_dir, cfg, oe.dataset, oe.mesh, oe.vertices,
+                       vis_masks, codes[0], Rs, ts, ok)
+        timing["debug_s"] = time.perf_counter() - t0
     return metrics, timing

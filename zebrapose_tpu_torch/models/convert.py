@@ -1,8 +1,9 @@
-"""JAX ZebraPoseNet variables -> the port's state dict; ImageNet
-backbone weights -> the port's model.
+"""JAX ZebraPoseNet variables <-> the port's state dict; reference
+`.pth` checkpoints; ImageNet backbone weights -> the port's model.
 
 The port's copy of the mapping in `zebrapose_tpu/models/convert_torch.py`
-(`_walk_reference`, the export mapping and `_CONCAT_ALIASES`), without
+(`_walk_reference`, both directions, `_CONCAT_ALIASES`,
+`export_reference_state_dict`, `save_reference_checkpoint`), without
 flax. The port's module names are the reference checkpoints' keys, so
 the result is also a reference-format state dict.
 Every family of the model: v1 / v2 / v3, ResNet34 / ResNet50, base 2
@@ -57,26 +58,10 @@ def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
     return out
 
 
-class _StateDictWriter:
-    def __init__(self, variables: Dict[str, Any]):
-        self.params = _flatten(variables.get("params", {}))
-        self.stats = _flatten(variables.get("batch_stats", {}))
-        self.sd: Dict[str, np.ndarray] = {}
-
-    def conv(self, ours: Tuple[str, ...], theirs: str, bias: bool = False):
-        self.sd[theirs + ".weight"] = \
-            self.params[ours + ("kernel",)].transpose(3, 2, 0, 1)
-        if bias:
-            self.sd[theirs + ".bias"] = self.params[ours + ("bias",)]
-
-    convt = conv
-
-    def bn(self, ours: Tuple[str, ...], theirs: str):
-        self.sd[theirs + ".weight"] = self.params[ours + ("scale",)]
-        self.sd[theirs + ".bias"] = self.params[ours + ("bias",)]
-        self.sd[theirs + ".running_mean"] = self.stats[ours + ("mean",)]
-        self.sd[theirs + ".running_var"] = self.stats[ours + ("var",)]
-        self.sd[theirs + ".num_batches_tracked"] = np.asarray(0, np.int64)
+class _Walker:
+    """The structure shared by both directions of the mapping: a subclass
+    moves one conv / BN leaf group (`conv`, `convt`, `bn`) and says
+    whether a block has a downsample branch."""
 
     def basic_block(self, ours: Tuple[str, ...], theirs: str,
                     bottleneck: bool = False):
@@ -87,7 +72,7 @@ class _StateDictWriter:
         if bottleneck:
             self.conv(ours + ("conv3", "conv"), theirs + ".conv3")
             self.bn(ours + ("bn3", "bn"), theirs + ".bn3")
-        if ours + ("downsample_conv", "conv", "kernel") in self.params:
+        if self.has_downsample(ours, theirs):
             self.conv(ours + ("downsample_conv", "conv"),
                       theirs + ".downsample.0")
             self.bn(ours + ("downsample_bn", "bn"), theirs + ".downsample.1")
@@ -110,7 +95,78 @@ class _StateDictWriter:
         self.upsample((ours_root, "upsample_2"), f"{theirs_root}.upsample_2")
 
 
-def _walk_reference(eb: _StateDictWriter, variant: str, nonbinary: bool,
+class _StateDictWriter(_Walker):
+    """JAX variables -> reference keys (`convert_torch.py::
+    _ExportBuilder`)."""
+
+    def __init__(self, variables: Dict[str, Any]):
+        self.params = _flatten(variables.get("params", {}))
+        self.stats = _flatten(variables.get("batch_stats", {}))
+        self.sd: Dict[str, np.ndarray] = {}
+
+    def conv(self, ours: Tuple[str, ...], theirs: str, bias: bool = False):
+        self.sd[theirs + ".weight"] = \
+            self.params[ours + ("kernel",)].transpose(3, 2, 0, 1)
+        if bias:
+            self.sd[theirs + ".bias"] = self.params[ours + ("bias",)]
+
+    convt = conv
+
+    def bn(self, ours: Tuple[str, ...], theirs: str):
+        self.sd[theirs + ".weight"] = self.params[ours + ("scale",)]
+        self.sd[theirs + ".bias"] = self.params[ours + ("bias",)]
+        self.sd[theirs + ".running_mean"] = self.stats[ours + ("mean",)]
+        self.sd[theirs + ".running_var"] = self.stats[ours + ("var",)]
+        self.sd[theirs + ".num_batches_tracked"] = np.asarray(0, np.int64)
+
+    def has_downsample(self, ours: Tuple[str, ...], theirs: str) -> bool:
+        return ours + ("downsample_conv", "conv", "kernel") in self.params
+
+
+class _TreeReader(_Walker):
+    """Reference keys -> JAX variables (`convert_torch.py::_TreeBuilder`:
+    the leaves keep the checkpoint's dtype, `num_batches_tracked` is
+    dropped)."""
+
+    def __init__(self, sd: Dict[str, Any]):
+        self.sd = sd
+        self.params: Dict[Tuple[str, ...], np.ndarray] = {}
+        self.stats: Dict[Tuple[str, ...], np.ndarray] = {}
+
+    def _get(self, key: str) -> np.ndarray:
+        v = self.sd[key]
+        return (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v))
+
+    def conv(self, ours: Tuple[str, ...], theirs: str, bias: bool = False):
+        self.params[ours + ("kernel",)] = \
+            self._get(theirs + ".weight").transpose(2, 3, 1, 0)
+        if bias:
+            self.params[ours + ("bias",)] = self._get(theirs + ".bias")
+
+    convt = conv
+
+    def bn(self, ours: Tuple[str, ...], theirs: str):
+        self.params[ours + ("scale",)] = self._get(theirs + ".weight")
+        self.params[ours + ("bias",)] = self._get(theirs + ".bias")
+        self.stats[ours + ("mean",)] = self._get(theirs + ".running_mean")
+        self.stats[ours + ("var",)] = self._get(theirs + ".running_var")
+
+    def has_downsample(self, ours: Tuple[str, ...], theirs: str) -> bool:
+        return theirs + ".downsample.0.weight" in self.sd
+
+
+def _unflatten(flat: Dict[Tuple[str, ...], np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _walk_reference(eb: _Walker, variant: str, nonbinary: bool,
                     resnet_layers: int) -> None:
     """The flax <-> reference leaf mapping of one model family
     (`convert_torch.py::_walk_reference`)."""
@@ -133,6 +189,13 @@ def _walk_reference(eb: _StateDictWriter, variant: str, nonbinary: bool,
                 bias=True)
 
 
+def _check_family(variant: str, resnet_layers: int) -> None:
+    if variant not in ("v1", "v2", "v3"):
+        raise ValueError(f"variant {variant!r}: v1, v2 or v3")
+    if resnet_layers not in _BLOCK_STAGES:
+        raise NotImplementedError(f"resnet_layers={resnet_layers}")
+
+
 def variables_to_state_dict(variables: Dict[str, Any], variant: str = "v2",
                             nonbinary: bool = False, resnet_layers: int = 34
                             ) -> Dict[str, torch.Tensor]:
@@ -140,14 +203,86 @@ def variables_to_state_dict(variables: Dict[str, Any], variant: str = "v2",
     (`variant`, `nonbinary` = base > 2, `resnet_layers`) -> a state dict
     that the same `ZebraPoseNet` accepts strictly (v1 and v2 share the
     key set; only the head width differs)."""
-    if variant not in ("v1", "v2", "v3"):
-        raise ValueError(f"variant {variant!r}: v1, v2 or v3")
-    if resnet_layers not in _BLOCK_STAGES:
-        raise NotImplementedError(f"resnet_layers={resnet_layers}")
+    _check_family(variant, resnet_layers)
     eb = _StateDictWriter(variables)
     _walk_reference(eb, variant, nonbinary, resnet_layers)
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in _fill_aliases(eb.sd).items()}
+
+
+def state_dict_to_variables(sd: Dict[str, Any], variant: str = "v2",
+                            nonbinary: bool = False,
+                            resnet_layers: int = 34) -> Dict[str, Any]:
+    """A reference-format state dict (the port's model's, or a `.pth`'s
+    `model_state_dict`; DDP prefixes stripped) -> the JAX {"params",
+    "batch_stats"} tree of numpy leaves: the port's copy of
+    `convert_torch.py::convert_reference_state_dict`."""
+    _check_family(variant, resnet_layers)
+    tr = _TreeReader(reference_state_dict(dict(sd)))
+    _walk_reference(tr, variant, nonbinary, resnet_layers)
+    return {"params": _unflatten(tr.params),
+            "batch_stats": _unflatten(tr.stats)}
+
+
+def reference_family(sd: Dict[str, Any]) -> Tuple[str, bool, int]:
+    """(variant, nonbinary, resnet_layers) of a reference-format state
+    dict, from its keys: v1 and v2 share one key set (read as "v2"), v3
+    adds `net.aspp_v3`, the non-binary heads replace `conv_1x1_4`, and
+    ResNet50's blocks have `conv3`."""
+    keys = {k[len("module."):] if k.startswith("module.") else k
+            for k in sd}
+    variant = "v3" if any(k.startswith("net.aspp_v3.") for k in keys) \
+        else "v2"
+    nonbinary = "net.aspp.conv_1x1_4_mask.weight" in keys
+    layers = 50 if "net.resnet.resnet.4.0.conv3.weight" in keys else 34
+    return variant, nonbinary, layers
+
+
+def export_reference_state_dict(variables: Dict[str, Any],
+                                variant: str = "v2",
+                                nonbinary: bool = False,
+                                resnet_layers: int = 34,
+                                concat: bool = True
+                                ) -> Dict[str, np.ndarray]:
+    """JAX variables -> a reference-format state dict of numpy leaves
+    (`convert_torch.py::export_reference_state_dict`): the walk's keys,
+    `num_batches_tracked` = 0 (int64, 0-d) for every BN, and with
+    `concat` the skip-tap aliases (`_CONCAT_ALIASES`) that a reference
+    module built with concat_decoder = True registers."""
+    _check_family(variant, resnet_layers)
+    eb = _StateDictWriter(variables)
+    _walk_reference(eb, variant, nonbinary, resnet_layers)
+    if concat:
+        for src, dst in _CONCAT_ALIASES:
+            for k in [k for k in eb.sd if k.startswith(src)]:
+                eb.sd[dst + k[len(src):]] = eb.sd[k]
+    return eb.sd
+
+
+def save_reference_checkpoint(path: str, variables: Dict[str, Any],
+                              iteration_step: int = 0,
+                              best_score: float = 0.0,
+                              variant: str = "v2",
+                              nonbinary: bool = False,
+                              resnet_layers: int = 34,
+                              concat: bool = True) -> None:
+    """Write a reference-format `.pth` (utils_v2.save_checkpoint's dict:
+    `model_state_dict`, `iteration_step`, `best_score`; the optimizer
+    and scheduler states are left out, as the JAX package leaves them:
+    the reference needs them to resume training, not to evaluate). The
+    same dict, tensor for tensor, as
+    `convert_torch.py::save_reference_checkpoint`."""
+    sd = export_reference_state_dict(variables, variant=variant,
+                                     nonbinary=nonbinary,
+                                     resnet_layers=resnet_layers,
+                                     concat=concat)
+    torch.save({
+        "model_state_dict": {
+            k: torch.from_numpy(np.ascontiguousarray(v)) if v.ndim
+            else torch.tensor(v) for k, v in sd.items()},
+        "iteration_step": int(iteration_step),
+        "best_score": float(best_score),
+    }, path)
 
 
 def _fill_aliases(sd: Dict[str, Any]) -> Dict[str, Any]:

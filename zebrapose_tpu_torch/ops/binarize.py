@@ -31,3 +31,10 @@ def code_from_logits(code_logits: torch.Tensor, loss_type: str = "BCE",
         grouped = code_logits.reshape(shape[:-1] + (shape[-1] // base, base))
         return torch.argmax(grouped, dim=-1).to(torch.float32)
     raise NotImplementedError(f"unknown loss type: {loss_type}")
+
+
+def split_batch_sizes(second_dataset_ratio: float, batch_size: int):
+    """Mixed real / PBR batch split (reference common_ops.get_batch_size;
+    JAX `ops/binarize.py::split_batch_sizes`): (first, second)."""
+    batch_2 = int(batch_size * second_dataset_ratio)
+    return batch_size - batch_2, batch_2

@@ -69,6 +69,22 @@ def auc_step(errors: np.ndarray, thresholds=None) -> np.ndarray:
     return (errors[:, None] < thresholds[None, :]).mean(axis=1)
 
 
+def voc_ap(rec: np.ndarray, prec: np.ndarray) -> float:
+    """VOC AP over the [0, 0.1] recall-vs-error curve (test.py VOCap;
+    JAX `ops/metrics.py::voc_ap`, which no path calls)."""
+    idx = np.where(rec != np.inf)[0]
+    if idx.size == 0:
+        return 0.0
+    rec = rec[idx]
+    prec = prec[idx]
+    mrec = np.concatenate(([0.0], rec, [0.1]))
+    mpre = np.concatenate(([0.0], prec, [prec[-1]]))
+    for i in range(1, mpre.shape[0]):
+        mpre[i] = max(mpre[i], mpre[i - 1])
+    i = np.where(mrec[1:] != mrec[:-1])[0] + 1
+    return float(np.sum((mrec[i] - mrec[i - 1]) * mpre[i]) * 10)
+
+
 def auc_posecnn(errors: np.ndarray) -> float:
     """PoseCNN-style AUC with a 0.1 m cutoff; `errors` in metres."""
     d = np.sort(np.asarray(errors, dtype=np.float64).copy())

@@ -41,9 +41,6 @@ import torch
 from zebrapose_tpu_torch.models.losses import CodeLossConfig, total_loss
 from zebrapose_tpu_torch.train.state import TrainState
 
-_FEED_KEYS = ("rgb", "label", "mask", "entire_mask", "roi_param", "valid")
-
-
 def stack_tensors(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """[K, ...] stack of equal-shape tensors. A stack of 4-D convolution
     weights keeps each member's slice channels-last, the layout the
@@ -311,7 +308,7 @@ def fleet_batch(members, it: int, device,
     device with one generator for the K·B batch
     (`trainer.aug_generator(it)`), as JAX draws one key for the flat
     batch. `clock["wait_s"]` adds the time spent waiting for batches."""
-    from zebrapose_tpu_torch.data.pipeline import preprocess_batch
+    from zebrapose_tpu_torch.data.pipeline import FEED_KEYS, preprocess_batch
     from zebrapose_tpu_torch.train.trainer import aug_generator
 
     cfg = members[0].cfg
@@ -320,7 +317,7 @@ def fleet_batch(members, it: int, device,
     if clock is not None:
         clock["wait_s"] += time.perf_counter() - t0
     feed = {k: torch.as_tensor(np.concatenate([r[k] for r in raws]))
-            .to(device) for k in _FEED_KEYS}
+            .to(device) for k in FEED_KEYS}
     return preprocess_batch(
         feed, crop_img=cfg.BoundingBox_CropSize_image,
         crop_gt=cfg.BoundingBox_CropSize_GT,

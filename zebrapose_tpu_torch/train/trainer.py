@@ -9,14 +9,19 @@ alone (train_v6). `build_train_setup` assembles everything from a BOP
 tree; `fit` is orchestration over injected resources, so tests drive it
 on synthetic data.
 
-Not ported yet (ROADMAP.md): data parallelism across cards (torch DDP;
-`parallel/mesh.py` holds the one-process arithmetic), the
-device-resident input modes, QAT and `train_step_cost`. The fleet
-trainer (K objects in one program) is `train/fleet.py`.
+Input modes (`build_train_setup`): stream (`MixedBatchIterator`, host
+arrays copied at each step), prefetch (the same wrapped in
+`DevicePrefetchIterator`: copies one step ahead on a side stream) and
+device_cache (`DeviceDatasetCache`: the splits' pixels on the device,
+batches gathered there). `train_step_cost` counts one train step's
+FLOPs. Not ported yet (ROADMAP.md, A8): data parallelism across cards
+(torch DDP; `parallel/mesh.py` holds the one-process arithmetic). The
+fleet trainer (K objects in one program) is `train/fleet.py`.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import time
@@ -28,8 +33,13 @@ import torch
 from zebrapose_tpu_torch.codec.lut import CorrespondenceLUT
 from zebrapose_tpu_torch.config import ZebraConfig
 from zebrapose_tpu_torch.data.pipeline import (
+    FEED_KEYS,
+    CachedBatchIterator,
     CropDatasetHost,
+    DeviceDatasetCache,
+    DevicePrefetchIterator,
     MixedBatchIterator,
+    gather_preprocess_batch,
     preprocess_batch,
 )
 from zebrapose_tpu_torch.eval.evaluate import evaluate_object, make_eval_step
@@ -46,13 +56,12 @@ from zebrapose_tpu_torch.train.train_step import (
     accum_train_step,
     eval_loss_step,
     forward_eval,
+    grad_step,
     train_step,
 )
 from zebrapose_tpu_torch.utils.device import resolve_device
 from zebrapose_tpu_torch.utils.logging import MetricsLogger
-
-_FEED_KEYS = ("rgb", "label", "mask", "entire_mask", "roi_param", "valid")
-
+from zebrapose_tpu_torch.utils.profiling import count_flops
 
 @dataclasses.dataclass
 class TrainResources:
@@ -77,6 +86,9 @@ class TrainResources:
     # the train iterator yields micro-batches
     accum_steps: int = 1
     bf16: bool = False
+    # device_cache mode: the splits' pixels on the device; train_iter
+    # then yields indices (CachedBatchIterator)
+    device_cache: Optional[DeviceDatasetCache] = None
 
 
 def _loss_cfg(cfg: ZebraConfig) -> CodeLossConfig:
@@ -89,7 +101,7 @@ def _loss_cfg(cfg: ZebraConfig) -> CodeLossConfig:
 
 
 def _to_device(raw: Dict[str, np.ndarray], dev) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(raw[k]).to(dev) for k in _FEED_KEYS}
+    return {k: torch.as_tensor(raw[k]).to(dev) for k in FEED_KEYS}
 
 
 def aug_generator(index: int, device) -> torch.Generator:
@@ -102,26 +114,35 @@ def aug_generator(index: int, device) -> torch.Generator:
 
 def _make_batch_fn(res: TrainResources,
                    clock: Optional[Dict[str, float]] = None):
-    """The per-draw batch closure shared by fit() and timed_steps(): one
-    (micro-)batch from res.train_iter, preprocessed and augmented on the
-    device. `clock["wait_s"]` adds the time spent waiting for it."""
+    """The per-draw batch closure shared by fit(), timed_steps() and
+    train_step_cost(): one (micro-)batch from res.train_iter,
+    preprocessed and augmented on the device with
+    `aug_generator(aug_index)` in every input mode: gathered from
+    res.device_cache by index, taken as the device tensors a
+    `DevicePrefetchIterator` hands out, or copied from host arrays.
+    `clock["wait_s"]` adds the time spent waiting for it."""
     cfg = res.cfg
+    kw = dict(crop_img=cfg.BoundingBox_CropSize_image,
+              crop_gt=cfg.BoundingBox_CropSize_GT,
+              base=cfg.divide_number_each_itration,
+              n_bits=cfg.number_of_itration,
+              resize_method=cfg.resize_method,
+              use_pepper_salt=cfg.use_peper_salt,
+              use_motion_blur=cfg.use_motion_blur)
 
     def _next_batch(aug_index: int) -> Dict[str, torch.Tensor]:
         t0 = time.perf_counter()
         raw = next(res.train_iter)
         if clock is not None:
             clock["wait_s"] += time.perf_counter() - t0
-        return preprocess_batch(
-            _to_device(raw, res.device),
-            crop_img=cfg.BoundingBox_CropSize_image,
-            crop_gt=cfg.BoundingBox_CropSize_GT,
-            base=cfg.divide_number_each_itration,
-            n_bits=cfg.number_of_itration,
-            resize_method=cfg.resize_method, is_train=True,
-            use_pepper_salt=cfg.use_peper_salt,
-            use_motion_blur=cfg.use_motion_blur,
-            generator=aug_generator(aug_index, res.device))
+        gen = aug_generator(aug_index, res.device)
+        if res.device_cache is not None:
+            return gather_preprocess_batch(
+                res.device_cache.arrays, raw["idx"], raw["roi_param"],
+                raw["valid"], gen, **kw)
+        feed = raw if getattr(res.train_iter, "device_resident", False) \
+            else _to_device(raw, res.device)
+        return preprocess_batch(feed, is_train=True, generator=gen, **kw)
 
     return _next_batch
 
@@ -203,6 +224,31 @@ def timed_steps(res: TrainResources, n_steps: int = 500, warm: int = 20,
         if events is not None:
             timing["event_ms"] = events[0].elapsed_time(events[1]) / n_steps
     return ms
+
+
+def train_step_cost(res: TrainResources) -> Dict[str, float]:
+    """FLOPs of one train step, forward and backward, at res's shapes:
+    one batch drawn as fit() draws them (one draw from res.train_iter,
+    augmentation index 0, as in JAX), then the step's forward, losses
+    and backward under `torch.utils.flop_counter.FlopCounterMode`
+    (`utils/profiling.py::count_flops`: matmuls and convolutions; Adam's
+    elementwise update counts 0). Runs on a copy of the model, so
+    res.state (parameters, BN statistics, the Adam state, the histogram,
+    the step) is left as it was.
+
+    Returns {"flops": ...}. The JAX package returns XLA's cost analysis
+    of the compiled step, which also has "bytes accessed"; eager
+    PyTorch has no counterpart, so that key is left out."""
+    cfg = res.cfg
+    batch = _make_batch_fn(res)(0)
+    model = copy.deepcopy(res.state.model)
+    probe = TrainState(model=model, optimizer=None,
+                       schedule=res.state.schedule,
+                       histogram=res.state.histogram.clone())
+    flops = count_flops(
+        grad_step, probe, batch, _loss_cfg(cfg),
+        float(cfg.binary_loss_weight), cfg.predict_entire_mask, res.bf16)
+    return {"flops": float(flops)}
 
 
 def fit(res: TrainResources, log_freq: int = 1000, validate: bool = True,
@@ -364,7 +410,9 @@ def build_train_setup(cfg: ZebraConfig, obj_name: str, output_dir: str,
                       max_val_samples: int = 512, bf16: bool = False,
                       gamma: float = 1.0, log_freq: int = 1000,
                       cache_images: bool = False, accum_steps: int = 1,
-                      qat: bool = False, device=None) -> TrainResources:
+                      qat: bool = False, device_cache: bool = False,
+                      device_prefetch: bool = False,
+                      device=None) -> TrainResources:
     """Assemble TrainResources from a BOP tree (train_v2.py:40-223) on
     `device` (CUDA unless "cpu" is asked for).
 
@@ -383,7 +431,12 @@ def build_train_setup(cfg: ZebraConfig, obj_name: str, output_dir: str,
     validation measures the quantized forward too; the parameters are
     unchanged, so the checkpoints load into an int8 model (`test
     --int8`). Start from a float checkpoint (cfg.load_checkpoint) and
-    fine-tune briefly, as with the JAX package.
+    fine-tune briefly, as with the JAX package. device_cache: the
+    training splits' pixels go to the device once (`DeviceDatasetCache`,
+    ~2.46 MB a 480x640 sample) and each step gathers its batch there;
+    device_prefetch: the streamed batches are copied one step ahead on a
+    side stream (`DevicePrefetchIterator`). The batches' draws are the
+    same in every mode.
     """
     from zebrapose_tpu_torch.codec.lut import load_correspondence_lut
     from zebrapose_tpu_torch.data import bop_io
@@ -458,10 +511,19 @@ def build_train_setup(cfg: ZebraConfig, obj_name: str, output_dir: str,
     if cfg.load_checkpoint:
         state = ckpt.restore(state)
     logger = MetricsLogger(os.path.join(output_dir, "logs"))
-    train_iter = MixedBatchIterator(
-        ds1, ds2, batch_size=local_batch,
-        second_dataset_ratio=cfg.second_dataset_ratio, seed=0,
-        num_workers=cfg.num_workers)
+    cache = None
+    if device_cache:
+        cache = DeviceDatasetCache([ds1, ds2], dev)
+        train_iter = CachedBatchIterator(
+            cache, batch_size=local_batch,
+            second_dataset_ratio=cfg.second_dataset_ratio, seed=0)
+    else:
+        train_iter = MixedBatchIterator(
+            ds1, ds2, batch_size=local_batch,
+            second_dataset_ratio=cfg.second_dataset_ratio, seed=0,
+            num_workers=cfg.num_workers)
+        if device_prefetch:
+            train_iter = DevicePrefetchIterator(train_iter, dev)
 
     return TrainResources(
         cfg=cfg, model=model, state=state, train_iter=train_iter,
@@ -470,4 +532,4 @@ def build_train_setup(cfg: ZebraConfig, obj_name: str, output_dir: str,
         symmetric=is_symmetric(cfg.dataset_name, obj_name), obj_id=obj_id,
         obj_name=obj_name, ckpt=ckpt, logger=logger,
         total_iterations=iters, device=dev, accum_steps=accum_steps,
-        bf16=bf16)
+        bf16=bf16, device_cache=cache)
