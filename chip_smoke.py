@@ -1,6 +1,6 @@
 """Drive the PyTorch port's inference, training, BOP, data-preparation,
-refinement, model-family, fleet, serving, int8 and CLI-tool paths on one
-card.
+refinement, model-family, fleet, serving, int8, CLI-tool and
+multi-process paths on one card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline OLD.cu --baseline-intrinsics fxfycxcy
@@ -38,8 +38,8 @@ check exits non-zero. Phases:
                  b8 train step on the card against the CPU (f32, TF32
                  off, the committed weights, injected augmentation);
                  `python -m zebrapose_tpu_torch train` (cli.main, in this
-                 process) from scratch in bf16 at b32, 100 steps with pose
-                 validation every 50 (the kernel's launches counted),
+                 process) from scratch in bf16 at b32, 60 steps with pose
+                 validation every 30 (the kernel's launches counted),
                  the loss's fall, the checkpoints, `test` on the best
                  one, a resume for 10 steps; ms a step from memory (bf16,
                  f32; streaming from PNG is phase 15's), the share spent
@@ -66,7 +66,7 @@ check exits non-zero. Phases:
                  symmetry, against the JAX package's label hashes; a
                  `train_pbr` split of 4 committed .jpg frames labelled by
                  `generate-labels`, and `train --from_scratch --bf16` on it
-                 for 40 steps with one pose validation (the kernel's
+                 for 20 steps with one pose validation (the kernel's
                  launches counted, the .jpg and label reads counted)
  11. families    contour refinement and the other model families:
                  the border follower on the committed masks against
@@ -98,7 +98,7 @@ check exits non-zero. Phases:
                  its single `test`; `vivo-fleet` over phase 9's
                  detections plus the can's, `score-bop` on the merged CSV
                  (AR against the JAX package's); `train-fleet
-                 --from_scratch --bf16` for 60 steps with one pose
+                 --from_scratch --bf16` for 20 steps with one pose
                  validation (each loss falls, each checkpoint loads into
                  `test`'s model, the kernel in validation), ms a fleet
                  step from memory in turns with a v2 step (v2, fleet,
@@ -166,8 +166,32 @@ check exits non-zero. Phases:
                  prefetch | device_cache` in bf16 at b32 from the same
                  init: the first batch equal and the first loss within
                  1e-5 of stream's on the same draws, prefetch's feeds
-                 equal to its inner iterator's, then 30 steps each (ms
+                 equal to its inner iterator's, then 8 steps each (ms
                  a step, the wait share, peak memory, the cache's bytes)
+ 16. multi       several processes (`parallel/mesh.py`), over the trees
+                 of phases 8 and 12: two ranks spawned on this card over
+                 gloo (NCCL refuses two ranks on one device): one f32
+                 step of the committed weights on a b16 batch (8 rows a
+                 rank, injected augmentation, TF32 off) against one
+                 process's step on all 16 rows (loss, grad_norm, the
+                 whole gradient, BN statistics, histogram, the weights
+                 after Adam); the ranks' weights, BN statistics, Adam
+                 moments and histogram bit-identical after 3 steps;
+                 `train --from_scratch --bf16` at b32 (16 a rank) for 20
+                 steps with one pose validation on rank 0 (the kernel's
+                 launches on each rank), the loss's fall, one writer,
+                 `test` on its checkpoint; ms a b32 step of the two
+                 processes sharing the card against one process's, and
+                 the gradient's all-reduce alone; `python -m
+                 torch.distributed.run --standalone --nproc_per_node 1 -m
+                 zebrapose_tpu_torch train --multihost` (one rank over
+                 NCCL) for 10 steps; the fleet over the two ranks (ape,
+                 can and cat on the same data: K = 3 padded to 4 with a
+                 ghost row) for 5 bf16 steps with the member
+                 augmentation injected: each member bit-equal to one
+                 process's K = 3 fleet's, the ghost row to the last
+                 member; `run_test_fleet(world=)` of ape and can (one
+                 member a rank) against phase 12's `test-fleet`
 
 `--write-tree DIR` writes phase 7's tree with phase 8's training split,
 phase 9's inputs and phase 12's tree `DIR/fleet` (and their configs) on
@@ -226,13 +250,14 @@ TREE_FRAMES, TREE_SEED = 120, 3     # the runner phase's BOP tree
 CYCLE_FRAMES = 12
 # the training phase: its split of the tree, the command's steps and log
 # cadence (2 log steps: 2 pose validations; the resume's checkpoint makes
-# the third rolling one), the batch of the card-vs-CPU step check. 100
-# steps (300 before phase 14, 150 before phase 15), with the families'
-# 20 below (40 before), keep the whole script inside TIME_LIMIT_S: with
-# 300 and 40 it took 1130.8 s of its 1200 s on an H100 80GB HBM3 at
-# 700 W, and runs of one tree vary by up to 280 s
+# the third rolling one), the batch of the card-vs-CPU step check. 60
+# steps (300 before phase 14, 150 before phase 15, 100 before phase 16),
+# with the families' 20 below (40 before), keep the whole script inside
+# TIME_LIMIT_S: with 300 and 40 it took 1130.8 s of its 1200 s on an
+# H100 80GB HBM3 at 700 W, with 100 and phase 16 1142.8 s, and runs of
+# one tree vary by up to 280 s
 TRAIN_FRAMES, TRAIN_SEED = 160, 4
-TRAIN_STEPS, TRAIN_LOG_FREQ, TRAIN_BATCH = 100, 50, 32
+TRAIN_STEPS, TRAIN_LOG_FREQ, TRAIN_BATCH = 60, 30, 32
 STEP_CHECK_BATCH = 8
 # that step's gates, card vs CPU: loss_total and grad_norm relative, the
 # BN running statistics relative to max(1, |value|), the histogram
@@ -284,7 +309,7 @@ JAX_CPU_LABELS = {
         "327cd88fedcaa803dc60ceabe092739d344f0485f159082384ecd3987244c30c"}
 SYM_INFO = {"symmetries_continuous": [{"axis": [0, 0, 1],
                                        "offset": [0, 0, 0]}]}
-PREP_FRAMES, PREP_STEPS, PREP_BATCH = 4, 40, 32
+PREP_FRAMES, PREP_STEPS, PREP_BATCH = 4, 20, 32     # 40 before phase 16
 
 # the families phase: the refiner's committed fixtures, with the JAX
 # package's figures in their manifest.json (`python
@@ -303,10 +328,11 @@ FAMILIES = {
         "BinaryCode_Loss_Type": "CE",
         "use_histgramm_weighted_binary_loss": False}},
 }
-FAMILY_STEPS, FAMILY_TEST_FRAMES = 20, 32
-# each family's timed steps against v2's, in turns (8 / 3, not 15 / 5,
-# to keep the whole script inside TIME_LIMIT_S, as TRAIN_STEPS)
-FAMILY_TIMED_STEPS, FAMILY_TIMED_WARM = 8, 3
+FAMILY_STEPS, FAMILY_TEST_FRAMES = 20, 16     # 32 frames before phase 16
+# each family's timed steps against v2's, in turns (5 / 2, not 15 / 5
+# or, before phase 16, 8 / 3, to keep the whole script inside
+# TIME_LIMIT_S, as TRAIN_STEPS)
+FAMILY_TIMED_STEPS, FAMILY_TIMED_WARM = 5, 2
 
 # the fleet phase: the second LM-O object (same sphere, mesh and LUT as
 # the ape) with GT on the first FLEET_FRAMES test frames and the first
@@ -322,7 +348,11 @@ FAMILY_TIMED_STEPS, FAMILY_TIMED_WARM = 8, 3
 # host's CPU, over `--write-tree DIR`.
 FLEET_OBJ, FLEET_OBJ_ID = "can", 5
 FLEET_FRAMES, FLEET_TRAIN_FRAMES = 88, 120
-FLEET_STEPS, FLEET_TIMED_STEPS, FLEET_TIMED_WARM = 60, 15, 5
+# 20 / 8 / 3 (60 / 15 / 5 before phase 16, which trains a fleet over two
+# ranks) keep the whole script inside TIME_LIMIT_S: with 60 / 15 / 5
+# train-fleet took 22.6 s of phase 12's 136.8 s on an H100 80GB HBM3 at
+# 700 W
+FLEET_STEPS, FLEET_TIMED_STEPS, FLEET_TIMED_WARM = 20, 8, 3
 FLEET_MIXED_FRAMES = 32
 JAX_CPU_FLEET = {
     "test": {"plain": {"ape": 0.6916666666666667, "can": 0.7613636363636364},
@@ -1516,7 +1546,7 @@ def train_phase(dev, card, tmp):
             batches = [next(res.train_iter) for _ in range(4)]
             res.train_iter.close()
             res.train_iter = _Batches(batches)
-            n, warm = 30, 10
+            n, warm = 15, 5       # 30, 10 before phase 16
             torch.cuda.reset_peak_memory_stats(dev)
             t = {}
             trainer.timed_steps(res, n_steps=n, warm=warm, timing=t)
@@ -4387,9 +4417,10 @@ def int8_phase(dev, card, tmp, runner, n_q):
 # ---- the CLI phase -------------------------------------------------------
 
 # phase 15: the frames `test --debug` walks (its refined `test` and the
-# fleet's), and the input modes' timed steps
+# fleet's), and the input modes' timed steps (8, not 30, since phase 16
+# was added: to keep the whole script inside TIME_LIMIT_S)
 DEBUG_FRAMES = 16
-MODE_STEPS, MODE_WARM = 30, 2
+MODE_STEPS, MODE_WARM = 8, 2
 # the first step's loss_total of prefetch and device_cache against
 # stream's on the same draws, relative
 MODE_LOSS_GATE = 1e-5
@@ -4760,6 +4791,792 @@ def cli_phase(dev, card, tmp):
     rec["modes"] = cli_input_modes(dev, card, tmp)
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"[cli] phase 15 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+# ---- the multi-process phase ---------------------------------------------
+
+# phase 16: two ranks share this card over gloo (NCCL refuses two ranks on
+# one device), spawned: the step check's global batch (8 rows a rank),
+# the steps after which the replicas are compared, `train` over the two
+# ranks (b32: 16 rows a rank) with one pose validation on rank 0 and its
+# timed steps; the one-rank NCCL `train --multihost` under torchrun; the
+# fleet over the two ranks (phase 12's ape and can and a third member on
+# their data, K = 3 padded to 4) and its steps
+MULTI_STEP_BATCH, MULTI_REPLICA_STEPS = 16, 3
+MULTI_FIT_STEPS = 20
+MULTI_TIMED_STEPS, MULTI_TIMED_WARM = 6, 2
+MULTI_NCCL_STEPS = 10
+MULTI_FLEET_STEPS = 5
+MULTI_OBJ, MULTI_OBJ_ID = "cat", 6
+# the step check's gates, two ranks against one process on the same
+# batch, weights and injected augmentation (f32, TF32 off): STEP_GATE's
+# figures, the whole gradient's relative L2, and the share of weights
+# whose first Adam step differs by more than lr / 2 (the first step moves
+# a weight by lr·g/(|g| + 1e-8): a gradient within rounding of 0 that
+# changes sign moves it 2·lr the other way)
+MULTI_GATE = dict(STEP_GATE, grad=1e-3, flipped=1e-3)
+
+
+def write_multi_tree(froot, root):
+    """Phase 16's fleet tree under `root`: phase 12's (`froot`) linked,
+    with a third LM-O object (MULTI_OBJ, id 6) on the same mesh and LUT
+    as one more GT instance of every training frame (the first
+    instance's pose, masks and labels). Returns its training config
+    (phase 12's, reading with one thread)."""
+    src, ds = os.path.join(froot, "lmo"), os.path.join(root, "lmo")
+    ids = (1, FLEET_OBJ_ID, MULTI_OBJ_ID)
+    os.makedirs(os.path.join(ds, "models_GT_color"))
+    for d in ("models", "models_eval"):
+        os.makedirs(os.path.join(ds, d))
+        for oid in ids:
+            os.symlink(os.path.join(src, d, "obj_000001.ply"),
+                       os.path.join(ds, d, f"obj_{oid:06d}.ply"))
+        with open(os.path.join(ds, d, "models_info.json"), "w") as f:
+            json.dump({str(o): {"diameter": 2 * SPHERE_RADIUS}
+                       for o in ids}, f)
+    for oid in ids:
+        os.symlink(os.path.join(src, "models_GT_color",
+                                "Class_CorresPoint000001.txt"),
+                   os.path.join(ds, "models_GT_color",
+                                f"Class_CorresPoint{oid:06d}.txt"))
+    for name in ("camera.json", "test"):
+        os.symlink(os.path.join(src, name), os.path.join(ds, name))
+    s_src = os.path.join(src, "train_real", "000001")
+    s_dst = os.path.join(ds, "train_real", "000001")
+    l_src = os.path.join(src, "train_real_GT_v2", "000001")
+    l_dst = os.path.join(ds, "train_real_GT_v2", "000001")
+    for d in (os.path.join(s_dst, "mask"), os.path.join(s_dst, "mask_visib"),
+              l_dst):
+        os.makedirs(d)
+    for name in ("rgb", "scene_camera.json"):
+        os.symlink(os.path.join(s_src, name), os.path.join(s_dst, name))
+    with open(os.path.join(s_src, "scene_gt.json")) as f:
+        gt = json.load(f)
+    with open(os.path.join(s_src, "scene_gt_info.json")) as f:
+        gti = json.load(f)
+    for im in gt:
+        gt[im].append(dict(gt[im][0], obj_id=MULTI_OBJ_ID))
+        gti[im].append(dict(gti[im][0]))
+        for gi in range(len(gt[im])):
+            own = f"{int(im):06d}_{min(gi, len(gt[im]) - 2):06d}.png" \
+                if gi < len(gt[im]) - 1 else f"{int(im):06d}_000000.png"
+            name = f"{int(im):06d}_{gi:06d}.png"
+            for sub in ("mask", "mask_visib"):
+                os.symlink(os.path.join(s_src, sub, own),
+                           os.path.join(s_dst, sub, name))
+            os.symlink(os.path.join(l_src, own), os.path.join(l_dst, name))
+    for name, obj in (("scene_gt", gt), ("scene_gt_info", gti)):
+        with open(os.path.join(s_dst, f"{name}.json"), "w") as f:
+            json.dump(obj, f)
+    with open(os.path.join(froot, "lmo_fleet_train.txt")) as f:
+        text = f.read().replace(f"bop_path = {froot}\n",
+                                f"bop_path = {root}\n")
+    path = os.path.join(root, "lmo_multi_train.txt")
+    with open(path, "w") as f:
+        # one reading thread: with a pool the jitter seeds of a batch's
+        # samples go out in the threads' order, and a member's batches
+        # would differ between two runs
+        f.write(text + "num_workers = 0\n")
+    return path
+
+
+def _digest(t):
+    """SHA-256 of a tensor's dtype, shape and bytes (bit equality)."""
+    import torch
+
+    t = t.detach().contiguous().cpu()
+    h = hashlib.sha256(f"{t.dtype} {tuple(t.shape)}".encode())
+    if t.numel():
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _state_digests(state):
+    """Digests of a TrainState's weights, buffers, Adam moments and
+    step counts, and histogram, by name, beside each tensor's float64
+    sum of |values| (how far two states are apart when they differ)."""
+    out = {f"sd/{k}": v for k, v in state.model.state_dict().items()}
+    for name, p in state.model.named_parameters():
+        for k, v in state.optimizer.state.get(p, {}).items():
+            out[f"adam/{name}/{k}"] = v
+    out["histogram"] = state.histogram
+    return {k: (_digest(v), float(v.detach().double().abs().sum()))
+            for k, v in out.items()}
+
+
+def _differ(a, b):
+    """(names whose digests differ, the largest |sum| difference)."""
+    names = sorted(k for k in a if a[k][0] != b.get(k, (None,))[0])
+    gap = max((abs(a[k][1] - b[k][1]) for k in names if k in b),
+              default=0.0)
+    return names, gap
+
+
+def _step_state(inp, dev, world=None):
+    import torch
+
+    from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
+    from zebrapose_tpu_torch.train.state import create_train_state
+
+    model = ZebraPoseNet(binary_code_length=16, variant="v2")
+    model.load_state_dict(inp["sd"], strict=True)
+    model = model.to(dev).to(memory_format=torch.channels_last)
+    state = create_train_state(model, inp["lr"], n_bits=16, world=world)
+    state.histogram = inp["hist0"].to(dev)
+    return state
+
+
+def _step_record(state, metrics):
+    """The values the step check compares, on the host."""
+    import torch
+
+    params = list(state.model.parameters())
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "stats": {k: v.to("cpu", copy=True) for k, v in
+                      state.model.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))},
+            "histogram": state.histogram.to("cpu", copy=True),
+            "params": torch.cat([p.detach().reshape(-1).cpu()
+                                 for p in params]),
+            "grads": torch.cat([state.optimizer.state[p]["exp_avg"]
+                                .reshape(-1).cpu() / 0.1 for p in params])}
+
+
+def _sync(dev):
+    """Wait for the card (nothing to wait for on the CPU, where phase 16
+    is rehearsed)."""
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _no_tf32():
+    import torch
+
+    was = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return was
+
+
+def _set_tf32(was):
+    import torch
+
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = was
+
+
+def _multi_step(world, spec):
+    """Phase 16 (a), one rank: the step check's step on this rank's rows
+    (its record on rank 0), then steps up to MULTI_REPLICA_STEPS on the
+    same rows and the digests of everything the state carries."""
+    import torch
+
+    from zebrapose_tpu_torch.parallel.mesh import shard_batch
+    from zebrapose_tpu_torch.train.train_step import train_step
+
+    inp = torch.load(spec["step_inputs"], weights_only=False)
+    was = _no_tf32()
+    try:
+        state = _step_state(inp, world.device, world)
+        rows = {k: v.to(world.device)
+                for k, v in shard_batch(world, inp["batch"]).items()}
+        m = train_step(state, rows, inp["loss_cfg"], **inp["kw"])
+        rec = _step_record(state, m) if world.is_main else {}
+        for _ in range(spec["n"]["replica_steps"] - 1):
+            train_step(state, rows, inp["loss_cfg"], **inp["kw"])
+        rec.update(digests=_state_digests(state), step=state.step)
+    finally:
+        _set_tf32(was)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _multi_fit(world, spec):
+    """Phase 16 (a), one rank: `train --from_scratch --bf16` over the two
+    ranks (cli.main in the joined world), MULTI_FIT_STEPS steps with one
+    pose validation (on rank 0); this rank's kernel launches."""
+    import torch
+
+    from zebrapose_tpu_torch import cli
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+
+    steps = str(spec["n"]["fit_steps"])
+    minimal_epnp_hypotheses.launches = 0
+    _sync(world.device)
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "--cfg", spec["cfg_train"], "--obj_name", "ape",
+                   "--from_scratch", "--bf16", "--cache_images",
+                   "--log_freq", steps, "--max_steps", steps,
+                   "--output_dir", spec["fit_out"],
+                   "--device", str(world.device)])
+    _sync(world.device)
+    torch.cuda.empty_cache()
+    return {"rc": rc, "launches": minimal_epnp_hypotheses.launches,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _timed_world_steps(world, spec):
+    """ms a b32 bf16 step (frames from memory) in `world` (one process,
+    or this rank of two, 16 rows a rank), and with two ranks the time of
+    the step's gradient all-reduce alone (one flat float32 all-reduce
+    through the host, gloo)."""
+    import torch
+
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.parallel.mesh import all_reduce_
+    from zebrapose_tpu_torch.train import trainer
+
+    cfg = ZebraConfig.from_file(spec["cfg_train"])
+    res = trainer.build_train_setup(
+        cfg, "ape", os.path.join(spec["dir"], f"timed_w{world.size}"),
+        pretrained_backbone=None, bf16=True, cache_images=True,
+        world=world)
+    t = {}
+    try:
+        batches = [next(res.train_iter) for _ in range(4)]
+        res.train_iter.close()
+        res.train_iter = _Batches(batches)
+        trainer.timed_steps(res, n_steps=spec["n"]["timed_steps"],
+                            warm=spec["n"]["timed_warm"], timing=t)
+        if world.distributed:
+            grads = [torch.ones_like(p) for p in res.model.parameters()]
+            all_reduce_(grads, world)
+            _sync(world.device)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                all_reduce_(grads, world)
+            _sync(world.device)
+            t["allreduce_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+            t["grad_bytes"] = sum(g.numel() * g.element_size()
+                                  for g in grads)
+            del grads
+    finally:
+        close_setup(res)
+    return t
+
+
+def _inject_member_augmentation(names):
+    """Make `train/fleet.py::fleet_batch` augment each member's rows with
+    its own generator, seeded from (step, the member's fleet index): a
+    member's batch then does not depend on the rows it shares a batch
+    with, so one fleet laid out over ranks and in one process draws the
+    same member batches (a ghost row, member K-1's resources, draws
+    member K-1's). Returns the function it replaced."""
+    import torch
+
+    from zebrapose_tpu_torch.data.pipeline import FEED_KEYS, preprocess_batch
+    from zebrapose_tpu_torch.train import fleet
+    from zebrapose_tpu_torch.train.trainer import aug_generator
+
+    def fleet_batch(members, it, device, clock=None):
+        cfg = members[0].cfg
+        drawn, out = {}, []
+        for m in members:
+            if id(m) not in drawn:
+                drawn[id(m)] = next(m.train_iter)
+            feed = {k: torch.as_tensor(drawn[id(m)][k]).to(device)
+                    for k in FEED_KEYS}
+            out.append(preprocess_batch(
+                feed, crop_img=cfg.BoundingBox_CropSize_image,
+                crop_gt=cfg.BoundingBox_CropSize_GT,
+                base=cfg.divide_number_each_itration,
+                n_bits=cfg.number_of_itration,
+                resize_method=cfg.resize_method, is_train=True,
+                generator=aug_generator(1000 * it + names.index(m.obj_name),
+                                        device)))
+        return {k: torch.cat([o[k] for o in out]) for k in out[0]}
+
+    real, fleet.fleet_batch = fleet.fleet_batch, fleet_batch
+    return real
+
+
+def _fleet_world_run(world, spec, out):
+    """Phase 16 (c): the K = 3 fleet (ape, can, MULTI_OBJ) in `world`
+    (one process, or this rank of two: the fleet padded to 4),
+    MULTI_FLEET_STEPS bf16 steps with the injected member augmentation
+    and cuDNN's deterministic algorithms, no validation; its rows'
+    digests and layout."""
+    import torch
+
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.train import fleet
+
+    names = ["ape", FLEET_OBJ, MULTI_OBJ]
+    real = _inject_member_augmentation(names)
+    was = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    steps = spec["n"]["fleet_steps"]
+    try:
+        cfg = ZebraConfig.from_file(spec["cfg_multi"])
+        fr = fleet.build_fleet_setup(
+            cfg, names, out, world=world, pretrained_backbone=None,
+            bf16=True, cache_images=True, log_freq=steps)
+        t0 = time.perf_counter()
+        best = fleet.fit_fleet(fr, log_freq=steps, max_steps=steps,
+                               validate=False)
+        _sync(world.device)
+        rec = {"rows": [_state_digests(fleet.index_state(fr.state, i))
+                        for i in range(len(fr.state.members))],
+               "members": [m.obj_name for m in fr.members],
+               "first": fr.first, "n_pad": fr.n_pad, "best": best,
+               "fit_s": time.perf_counter() - t0}
+        for m in fr.members + ([fr.ghost_source] if fr.ghost_source
+                               else []):
+            m.ckpt.close()
+            m.logger.close()
+    finally:
+        fleet.fleet_batch = real
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = was
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _multi_test_fleet(world, spec):
+    """Phase 16 (c), one rank: `run_test_fleet(world=)` of ape and can
+    (the committed weights, b32) over phase 12's tree; this rank's
+    kernel launches."""
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.eval.fleet_serve import run_test_fleet
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+
+    minimal_epnp_hypotheses.launches = 0
+    t0 = time.perf_counter()
+    res = run_test_fleet(ZebraConfig.from_file(spec["cfg_test"]),
+                         ["ape", FLEET_OBJ], [CKPT, CKPT], spec["tf_out"],
+                         batch_size=32, world=world)
+    _sync(world.device)
+    return {"result": res, "launches": minimal_epnp_hypotheses.launches,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _multi_rank(rank, spec):
+    """One of phase 16's two ranks on cuda:0, joined over gloo; writes
+    its record to `<dir>/rank<r>.pt` (what it got through, on a
+    failure too)."""
+    import torch
+
+    from zebrapose_tpu_torch.parallel.mesh import (
+        initialize_multihost,
+        shutdown,
+    )
+
+    world = initialize_multihost(backend="gloo", device=spec["device"],
+                                 init_method=spec["init"], rank=rank,
+                                 world_size=2, timeout_s=600)
+    rec = {"backend": world.backend, "device": str(world.device)}
+    try:
+        rec["step"] = _multi_step(world, spec)
+        rec["fit"] = _multi_fit(world, spec)
+        rec["timed"] = _timed_world_steps(world, spec)
+        rec["fleet"] = _fleet_world_run(world, spec, spec["fleet_out"])
+        rec["test_fleet"] = _multi_test_fleet(world, spec)
+    finally:
+        torch.save(rec, os.path.join(spec["dir"], f"rank{rank}.pt"))
+        shutdown()
+
+
+def _spawn_ranks(fn, n, spec, timeout):
+    """Start n fresh interpreters running fn(rank, spec) and wait for
+    all; when one fails, or at `timeout` seconds, the others are killed
+    (a rank left in a collective would wait for its peer). Returns the
+    exit codes."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=(r, spec)) for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return [p.exitcode for p in procs]
+
+
+def _multi_step_reference(dev, tmp, cfg, spec):
+    """Phase 16 (a)'s reference: the b16 batch of phase 8's split with
+    injected augmentation, preprocessed on the card once and written
+    for the ranks, and one process's f32 step on all of it."""
+    import torch
+
+    from zebrapose_tpu_torch.data import bop_io
+    from zebrapose_tpu_torch.data.pipeline import (
+        FEED_KEYS,
+        CropDatasetHost,
+        preprocess_batch,
+    )
+    from zebrapose_tpu_torch.models.convert import variables_to_state_dict
+    from zebrapose_tpu_torch.ops.augment import draw_augment
+    from zebrapose_tpu_torch.train import trainer
+    from zebrapose_tpu_torch.train.train_step import train_step
+    from zebrapose_tpu_torch.utils.compact_ckpt import load_compact
+
+    n = MULTI_STEP_BATCH
+    root = os.path.join(tmp, "bop")
+    samples = bop_io.get_dataset(root, "lmo", train=True,
+                                 data_folder="train_real")
+    ds = CropDatasetHost(samples.dataset_dir, "train_real",
+                         *samples.for_obj(1), is_train=True)
+    raw = ds.collate(list(range(n)))
+    draws = draw_augment(torch.Generator().manual_seed(16), n, 256, 256)
+    batch = preprocess_batch({k: torch.as_tensor(raw[k]).to(dev)
+                              for k in FEED_KEYS}, crop_img=256,
+                             crop_gt=128, is_train=True,
+                             draws=draws.to(dev))
+    inp = {"sd": variables_to_state_dict(load_compact(CKPT)[0], "v2"),
+           "batch": {k: v.cpu() for k, v in batch.items()},
+           "hist0": torch.linspace(0.02, 0.45, 16),
+           "lr": cfg.learning_rate, "loss_cfg": trainer._loss_cfg(cfg),
+           "kw": dict(binary_loss_weight=float(cfg.binary_loss_weight),
+                      predict_entire_mask=cfg.predict_entire_mask)}
+    torch.save(inp, spec["step_inputs"])
+    was = _no_tf32()
+    try:
+        state = _step_state(inp, dev)
+        rec = _step_record(state, train_step(state, batch, inp["loss_cfg"],
+                                             **inp["kw"]))
+    finally:
+        _set_tf32(was)
+    del state, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _multi_step_check(card, one, two, lr):
+    """Phase 16 (a)'s gates: the two ranks' step (rank 0's record)
+    against one process's (MULTI_GATE)."""
+    rel = {k: abs(two["metrics"][k] - one["metrics"][k])
+           / max(abs(one["metrics"][k]), 1e-12)
+           for k in ("loss_total", "grad_norm")}
+    bn = max(float(((two["stats"][k] - one["stats"][k]).abs()
+                    / one["stats"][k].abs().clamp(min=1.0)).max())
+             for k in one["stats"])
+    hist = float((two["histogram"] - one["histogram"]).abs().max())
+    grad = float((two["grads"] - one["grads"]).norm()
+                 / one["grads"].norm())
+    dp = (two["params"] - one["params"]).abs()
+    flipped = float((dp > lr / 2).double().mean())
+    log(f"[multi] one step, two ranks (b{MULTI_STEP_BATCH // 2} each, "
+        f"gloo) vs one process (b{MULTI_STEP_BATCH}) on the card, the "
+        f"committed weights, injected augmentation, f32 with TF32 off: "
+        f"loss_total {two['metrics']['loss_total']:.6f} vs "
+        f"{one['metrics']['loss_total']:.6f} (rel {rel['loss_total']:.2e}), "
+        f"grad_norm {two['metrics']['grad_norm']:.6f} vs "
+        f"{one['metrics']['grad_norm']:.6f} (rel {rel['grad_norm']:.2e}); "
+        f"the whole gradient's relative L2 {grad:.2e}; BN running "
+        f"statistics max err {bn:.2e} (relative to max(1, |value|)); "
+        f"histogram max err {hist:.2e}; weights after the step: max |diff| "
+        f"{float(dp.max()):.3e} (lr {lr:g}), share moved differently by > "
+        f"lr/2 {flipped:.2e} of {dp.numel()}; gates "
+        + ", ".join(f"{k} {v:.0e}" for k, v in MULTI_GATE.items())
+        + f"; on {card}")
+    check(rel["loss_total"] <= MULTI_GATE["loss_total"]
+          and rel["grad_norm"] <= MULTI_GATE["grad_norm"],
+          "multi step: loss or grad_norm differ between two ranks and one "
+          "process")
+    check(grad <= MULTI_GATE["grad"], "multi step: the gradients differ")
+    check(bn <= MULTI_GATE["bn"], "multi step: BN running statistics differ")
+    check(hist <= MULTI_GATE["hist"], "multi step: histograms differ")
+    check(flipped <= MULTI_GATE["flipped"],
+          "multi step: the weights moved differently")
+    return {"rel": rel, "grad_rel_l2": grad, "bn_err": bn, "hist_err": hist,
+            "param_max_diff": float(dp.max()), "flipped_share": flipped}
+
+
+def multi_nccl_start(tmp, cfg_train):
+    """Phase 16 (b), started: `python -m torch.distributed.run
+    --standalone --nproc_per_node 1 -m zebrapose_tpu_torch train
+    --multihost` (one rank over NCCL), MULTI_NCCL_STEPS steps with one
+    pose validation, in a process of its own; (process, output dir,
+    start time)."""
+    out = os.path.join(tmp, "multi_nccl")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "zebrapose_tpu_torch", "train",
+           "--multihost", "--cfg", cfg_train, "--obj_name", "ape",
+           "--from_scratch", "--bf16", "--cache_images", "--log_freq",
+           str(MULTI_NCCL_STEPS), "--max_steps", str(MULTI_NCCL_STEPS),
+           "--output_dir", out, "--device", "cuda"]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, out, time.perf_counter()
+
+
+def multi_nccl(card, started):
+    """Phase 16 (b), finished: the NCCL run's gates."""
+    proc, out, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=400)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    world = [ln for ln in stdout.splitlines() if ln.startswith("world:")]
+    run = os.path.join(out, "lmo_ape")
+    ok = proc.returncode == 0
+    rows = _metrics_rows(run) if ok else []
+    losses = [r["value"] for r in rows if r["tag"] == "train/step_loss_total"]
+    recall = [r["value"] for r in rows if r["tag"] == "val/ADD_recall_0.1d"]
+    log(f"[multi] torchrun --standalone --nproc_per_node 1 train "
+        f"--multihost (NCCL): exit {proc.returncode}, {world}, "
+        f"{len(losses)} steps, loss first {losses[:1]} last {losses[-1:]}, "
+        f"val recall {recall}, 'best val recall' printed "
+        f"{stdout.count('best val recall')}x; {wall:.1f} s wall (the "
+        f"launcher, the interpreter and the card's context included, "
+        f"beside this process's one-process references); on {card}")
+    if not ok:
+        log(stdout[-3000:] + stderr[-3000:])
+    check(ok, f"torchrun train --multihost returned {proc.returncode}")
+    check(world == [f"world: 1 rank(s) over nccl, rank 0 on cuda:0"],
+          "torchrun train --multihost did not join an NCCL world on cuda:0")
+    check(len(losses) == MULTI_NCCL_STEPS and len(recall) == 1
+          and stdout.count("best val recall") == 1,
+          "torchrun train --multihost: steps, validation or output")
+    check(os.path.exists(os.path.join(run, "checkpoints", "steps",
+                                      f"step_{MULTI_NCCL_STEPS}.pth")),
+          "torchrun train --multihost wrote no checkpoint")
+    return {"rc": proc.returncode, "wall_s": wall, "steps": len(losses),
+            "recall": recall}
+
+
+def multi_phase(dev, card, tmp, one_timed=None):
+    """Phase 16 (see the module docstring), after phases 7-15 under
+    `tmp`; returns its record. `one_timed`: phase 8's timed bf16 b32
+    steps from memory (`timed_steps`' record), the one-process figure
+    beside the two ranks'; measured here when not given."""
+    import torch
+
+    from zebrapose_tpu_torch import cli
+    from zebrapose_tpu_torch.config import ZebraConfig
+    from zebrapose_tpu_torch.ops.pnp_kernel import minimal_epnp_hypotheses
+    from zebrapose_tpu_torch.parallel.mesh import World
+
+    t_phase = time.perf_counter()
+    mdir = os.path.join(tmp, "multi")
+    os.makedirs(mdir)
+    root, froot = os.path.join(tmp, "bop"), os.path.join(tmp, "fleet")
+    cfg_train = os.path.join(root, "lmo_ape_train.txt")
+    cfg = ZebraConfig.from_file(cfg_train)
+    spec = {"dir": mdir,
+            "device": "cuda:0" if dev.type == "cuda" else "cpu",
+            "n": {"replica_steps": MULTI_REPLICA_STEPS,
+                  "fit_steps": MULTI_FIT_STEPS,
+                  "timed_steps": MULTI_TIMED_STEPS,
+                  "timed_warm": MULTI_TIMED_WARM,
+                  "fleet_steps": MULTI_FLEET_STEPS},
+            "init": "file://" + os.path.join(mdir, "rendezvous"),
+            "step_inputs": os.path.join(mdir, "step_inputs.pt"),
+            "cfg_train": cfg_train,
+            "cfg_multi": write_multi_tree(froot,
+                                          os.path.join(tmp, "multi_tree")),
+            "cfg_test": os.path.join(froot, "lmo_fleet.txt"),
+            "fit_out": os.path.join(mdir, "fit"),
+            "fleet_out": os.path.join(mdir, "fleet_two"),
+            "tf_out": os.path.join(mdir, "test_fleet")}
+    # the NCCL run in a process of its own beside this process's
+    # references (neither is timed), done before the two ranks start
+    nccl = multi_nccl_start(tmp, cfg_train)
+    try:
+        one_step = _multi_step_reference(dev, tmp, cfg, spec)
+        one_world = World(device=dev)
+        one_fleet = _fleet_world_run(one_world, spec,
+                                     os.path.join(mdir, "fleet_one"))
+    finally:
+        rec_nccl = multi_nccl(card, nccl)
+    if one_timed is None:
+        one_timed = dict(_timed_world_steps(one_world, spec),
+                         source="measured here")
+    torch.cuda.empty_cache()
+
+    # the two ranks
+    t0 = time.perf_counter()
+    codes = _spawn_ranks(_multi_rank, 2, spec, timeout=900)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(mdir, f"rank{r}.pt"),
+                        weights_only=False)
+             if os.path.exists(os.path.join(mdir, f"rank{r}.pt")) else {}
+             for r in range(2)]
+    log(f"[multi] two ranks spawned on {spec['device']} over "
+        f"{ranks[0].get('backend')}: exit codes {codes}, {ranks_s:.1f} s "
+        f"wall; got through {[sorted(r) for r in ranks]}")
+    check(codes == [0, 0], f"phase 16's ranks exited {codes}")
+    r0, r1 = ranks
+    rec = {"card": card, "ranks_s": ranks_s, "nccl": rec_nccl,
+           "step": _multi_step_check(card, one_step, r0["step"],
+                                     cfg.learning_rate)}
+
+    # (a) the replicas after MULTI_REPLICA_STEPS steps
+    names, gap = _differ(r0["step"]["digests"], r1["step"]["digests"])
+    log(f"[multi] after {r0['step']['step']} steps the two ranks' weights, "
+        f"BN statistics, Adam moments and histogram: "
+        f"{len(r0['step']['digests'])} tensors, {len(names)} differ "
+        f"(largest sum |x| gap {gap:.3e}) {names[:5]}")
+    check(not names and r0["step"]["step"] == MULTI_REPLICA_STEPS,
+          "multi: the replicas are not bit-identical")
+    rec["replicas_differ"] = len(names)
+
+    # (a) train over the two ranks, then `test` on its checkpoint
+    fit = [r["fit"] for r in ranks]
+    run = os.path.join(spec["fit_out"], "lmo_ape")
+    rows = _metrics_rows(run)
+    losses = [r["value"] for r in rows if r["tag"] == "train/step_loss_total"]
+    recall = [r["value"] for r in rows if r["tag"] == "val/ADD_recall_0.1d"]
+    timing = {r["tag"][len("timing/"):]: r["value"] for r in rows
+              if r["tag"].startswith("timing/")}
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    steps_dir = os.path.join(run, "checkpoints", "steps")
+    best_dir = os.path.join(run, "checkpoints", "best")
+    rolling = sorted(os.listdir(steps_dir))
+    best = sorted(f for f in os.listdir(best_dir) if f.endswith(".pth")) \
+        if os.path.isdir(best_dir) else []
+    val_batches = -(-TREE_FRAMES // 16)
+    step_ms = 1e3 * (timing["fit_s"] - timing["val_s"] - timing["log_s"]) \
+        / timing["steps"]
+    log(f"[multi] `train --from_scratch --bf16` over two ranks (b"
+        f"{TRAIN_BATCH}: {TRAIN_BATCH // 2} a rank), {MULTI_FIT_STEPS} "
+        f"steps: loss mean of the first 10 {first:.4f}, of the last 10 "
+        f"{last:.4f}; val ADD recall@0.1d {recall} (rank 0); kernel "
+        f"launches rank 0 {fit[0]['launches']}, rank 1 {fit[1]['launches']}"
+        f"; rolling {rolling}, best {best}; {timing['steps']:.0f} logged "
+        f"steps in rank 0's log; {step_ms:.1f} ms a step in the command; "
+        f"{fit[0]['wall_s']:.1f} s wall; on {card}")
+    check(all(f["rc"] == 0 for f in fit), "multi train: a rank failed")
+    check(len(losses) == MULTI_FIT_STEPS and np.isfinite(losses).all(),
+          "multi train: rank 0's log lacks a step's loss")
+    check(last < first, "multi train: the loss did not fall")
+    check(len(recall) == 1 and fit[0]["launches"] >= val_batches
+          and fit[1]["launches"] == 0,
+          "multi train: pose validation did not run once, on rank 0, "
+          "through the kernel")
+    check(rolling == [f"step_{MULTI_FIT_STEPS}.pth"],
+          f"multi train: rolling checkpoints {rolling}")
+    ckpt = os.path.join(best_dir, best[0]) if best else \
+        os.path.join(steps_dir, rolling[-1])
+    minimal_epnp_hypotheses.launches = 0
+    test_out = os.path.join(mdir, "test_trained")
+    rc = cli.main(["test", "--cfg", os.path.join(root, "lmo_ape.txt"),
+                   "--obj_name", "ape", "--ckpt_file", ckpt, "--batch_size",
+                   "32", "--max_samples", "32", "--output_dir", test_out,
+                   "--device", str(dev)])
+    test_launches = minimal_epnp_hypotheses.launches
+    check(rc == 0 and test_launches >= 1,
+          f"test of the two ranks' checkpoint returned {rc}")
+    log(f"[multi] `test --ckpt_file {os.path.relpath(ckpt, run)} "
+        f"--max_samples 32`: {test_launches} kernel launches; on {card}")
+    rec["fit"] = {"first10": first, "last10": last, "recall": recall,
+                  "launches": [f["launches"] for f in fit],
+                  "step_ms": step_ms, "test_launches": test_launches}
+
+    # (a) ms a step: two ranks sharing the card against one process
+    two = [r["timed"] for r in ranks]
+    log(f"[multi] timed steps bf16 b{TRAIN_BATCH} (frames from memory): "
+        f"one process {one_timed['host_ms']:.2f} ms a step "
+        f"({one_timed.get('source', 'phase 8')}); {MULTI_TIMED_STEPS} after "
+        f"{MULTI_TIMED_WARM} of two processes sharing this one card over "
+        f"gloo ({TRAIN_BATCH // 2} rows each) rank 0 "
+        f"{two[0]['host_ms']:.2f}, rank 1 {two[1]['host_ms']:.2f} ms a step "
+        f"(host clock; not a multi-card speed: both ranks' kernels queue "
+        f"on one device and every all-reduce goes through the host); the "
+        f"gradient's flat all-reduce alone {two[0]['allreduce_ms']:.2f} ms "
+        f"for {two[0]['grad_bytes'] / 2 ** 20:.1f} MiB; on {card}")
+    rec["timed"] = {"one": one_timed, "two": two}
+
+    # (c) the fleet over the two ranks against one process
+    f0, f1 = r0["fleet"], r1["fleet"]
+    layout = ((f0["members"], f1["members"]), (f0["first"], f1["first"]),
+              f0["n_pad"])
+    real = [_differ(a, b) for a, b in zip(f0["rows"] + f1["rows"][:1],
+                                          one_fleet["rows"])]
+    ghost = _differ(f1["rows"][1], f1["rows"][0])
+    ckpts = {n: sorted(os.listdir(os.path.join(
+        spec["fleet_out"], n, "checkpoints", "steps")))
+        for n in ("ape", FLEET_OBJ, MULTI_OBJ)}
+    log(f"[multi] fleet ape, {FLEET_OBJ}, {MULTI_OBJ} over two ranks "
+        f"(padded to 4; members {layout[0]}, first rows {layout[1]}, "
+        f"{layout[2]} ghost row), {MULTI_FLEET_STEPS} bf16 steps with the "
+        f"member augmentation injected and cuDNN deterministic, against "
+        f"one process's K = 3 fleet: tensors differing per member "
+        f"{[len(n) for n, _ in real]} of {len(one_fleet['rows'][0])} "
+        f"(largest sum |x| gap {max(g for _, g in real):.3e}); the ghost "
+        f"row against {MULTI_OBJ} on rank 1: {len(ghost[0])} differ; bests "
+        f"rank 0 {f0['best']}, rank 1 {f1['best']}; checkpoints {ckpts}; "
+        f"fit {f0['fit_s']:.1f} s (one process {one_fleet['fit_s']:.1f} s)"
+        f"; on {card}")
+    check(layout == ((["ape", FLEET_OBJ], [MULTI_OBJ]), (0, 2), 1),
+          "multi fleet: the members are not laid out as JAX's P('model')")
+    check(all(not n for n, _ in real),
+          "multi fleet: a member differs from the one-process fleet's")
+    check(not ghost[0], "multi fleet: the ghost row departs from the last "
+          "member")
+    check(f0["best"] == f1["best"] == one_fleet["best"]
+          and len(f0["best"]) == 3, "multi fleet: the bests differ")
+    check(all(v == [f"step_{MULTI_FLEET_STEPS}.pth"]
+              for v in ckpts.values()),
+          f"multi fleet: checkpoints {ckpts}")
+    rec["fleet"] = {"differ": [len(n) for n, _ in real],
+                    "ghost_differ": len(ghost[0])}
+
+    # (c) run_test_fleet over the two ranks against phase 12's test-fleet
+    tf = [r["test_fleet"] for r in ranks]
+    plain = _run_dir(os.path.join(tmp, "f_fleet_plain"))
+    want = _last_json(open(os.path.join(plain, "log.txt")).read())
+    same, agree, per = {}, {}, {}
+    for n, oid in (("ape", 1), (FLEET_OBJ, FLEET_OBJ_ID)):
+        a, b = (os.path.join(d, "pose_result_bop", f"lmo_{n}.csv")
+                for d in (spec["tf_out"], plain))
+        same[n] = open(a).read() == open(b).read()
+        va, vb = (_add_verdicts(_csv_poses(x), froot, oid) for x in (a, b))
+        check(sorted(va) == sorted(vb),
+              f"multi test-fleet: {n}'s rows are not phase 12's frames")
+        agree[n] = sum(va[i] == vb[i] for i in vb)
+        per[n] = (tf[0]["result"]["per_object"][n]["ADD_recall_0.1d"],
+                  want["per_object"][n]["ADD_recall_0.1d"])
+    same["merged"] = open(os.path.join(spec["tf_out"], "lmo_fleet.csv")) \
+        .read() == open(os.path.join(plain, "lmo_fleet.csv")).read()
+    log(f"[multi] run_test_fleet(world=) of ape, {FLEET_OBJ} over two ranks "
+        f"(one member each, b32) against phase 12's one-process test-fleet: "
+        f"ADD recall@0.1d (two ranks, phase 12) {per}; CSVs byte-equal "
+        f"{same}; success+ADD verdicts equal on "
+        + ", ".join(f"{n} {a}" for n, a in agree.items())
+        + f" of {TREE_FRAMES}, {FLEET_FRAMES} frames (a rank's vmapped "
+        f"forward over its one member rounds as a grouped convolution "
+        f"over two need not); kernel launches rank 0 {tf[0]['launches']}, "
+        f"rank 1 {tf[1]['launches']}; both ranks returned the same result: "
+        f"{tf[0]['result'] == tf[1]['result']}; {tf[0]['wall_s']:.1f} s; "
+        f"on {card}")
+    check(tf[0]["result"] == tf[1]["result"],
+          "multi test-fleet: the ranks returned different results")
+    check(all(agree[n] >= 0.9 * m for n, m in (("ape", TREE_FRAMES),
+                                               (FLEET_OBJ, FLEET_FRAMES)))
+          and all(abs(a - b) <= RECALL_SLACK for a, b in per.values()),
+          "multi test-fleet: the two ranks' poses depart from phase 12's "
+          "test-fleet")
+    check(min(t["launches"] for t in tf) >= -(-FLEET_FRAMES // 32),
+          "multi test-fleet: a rank did not launch the kernel a batch")
+    rec["test_fleet"] = {"same": same, "agree": agree, "recall": per,
+                         "launches": [t["launches"] for t in tf]}
+    rec["launches"] = {"multi_fit": fit[0]["launches"],
+                       "multi_test": test_launches,
+                       "multi_test_fleet": sum(t["launches"] for t in tf)}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[multi] phase 16 took {rec['phase_s']:.1f} s")
     return rec
 
 
@@ -5260,7 +6077,8 @@ def main(argv=None) -> int:
 
     # ---- 7. the test runner, 8. the training path, 9. BOP, 10. prep,
     # 11. refinement and the model families, 12. the fleet, 13. serving,
-    # 14. int8, 15. the CLI tools and the input modes --------------------
+    # 14. int8, 15. the CLI tools and the input modes, 16. several
+    # processes ------------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         runner = runner_phase(dev, card, tmp)
         train = train_phase(dev, card, tmp)
@@ -5272,6 +6090,7 @@ def main(argv=None) -> int:
         int8 = int8_phase(dev, card, tmp, runner,
                           int8_rec["quantized_convs"])
         cli_rec = cli_phase(dev, card, tmp)
+        multi = multi_phase(dev, card, tmp, train["timed"]["bf16"])
 
     main_n = 256 * cfg.n_hypotheses                  # the b256 stage
     rec = {"name": "minimal_epnp_hypotheses", "route": "cuda",
@@ -5303,10 +6122,11 @@ def main(argv=None) -> int:
                   for k, v in serving["serve"].items()},
                "visualize": cli_rec["visualize"]["launches"],
                "test_debug": cli_rec["test"]["launches"],
-               "test_fleet_debug": cli_rec["fleet"]["launches"]},
+               "test_fleet_debug": cli_rec["fleet"]["launches"],
+               **multi["launches"]},
            "runner": runner, "train": train, "bop": bop, "prep": prep,
            "families": families, "fleet": fleet, "serving": serving,
-           "cli": cli_rec, "card": card}
+           "cli": cli_rec, "multi": multi, "card": card}
     if ab:
         rec["ab"] = {str(n): v for n, v in ab.items()}
     recs = [rec]

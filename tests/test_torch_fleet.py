@@ -316,20 +316,31 @@ def test_fit_fleet_resume_and_mixed_steps(tree, tmp_path):
     refused."""
     batch = _datasets(tree[0])[1].collate([0, 1, 2, 3])
 
-    def run(names, seeds, steps, restore=None):
+    def run(names, seeds, steps, log_freq=2, restore=None):
         ms = _members(tree, tmp_path, names, seeds,
                       iters=[_Repeat(batch)] * 2, val=False)
         if restore is not None:
-            for m in ms:
-                m.ckpt.restore(m.state, step=restore)
+            for m, src in zip(ms, restore):
+                CheckpointManager(str(tmp_path / src / "ck")).restore(
+                    m.state, step=2)
         fr = fleet.FleetResources(ms, fleet.stack_states(
             [m.state for m in ms]))
-        fleet.fit_fleet(fr, log_freq=2, max_steps=steps, validate=False)
+        fleet.fit_fleet(fr, log_freq=log_freq, max_steps=steps,
+                        validate=False)
+        for m in ms:
+            m.ckpt.close()
         return fr
 
-    a = run(("a0", "a1"), (4, 5), 4)
+    # a checkpoint of this model with Adam's moments is ~0.5 GB, and six
+    # workers share the disk: the runs whose files nothing reads delete
+    # them at once, so at most four are on disk
+    a = run(("a0", "a1"), (4, 5), 4, log_freq=4)
+    for n in ("a0", "a1"):
+        shutil.rmtree(tmp_path / n)
     run(("b0", "b1"), (4, 5), 2)
-    c = run(("b0", "b1"), (6, 7), 2, restore=2)
+    c = run(("c0", "c1"), (6, 7), 2, restore=("b0", "b1"))
+    for n in ("b0", "c0", "c1"):
+        shutil.rmtree(tmp_path / n)
     assert a.state.step == c.state.step == 4
     for n, p in a.state.params.items():
         assert torch.equal(p, c.state.params[n]), n

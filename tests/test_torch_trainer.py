@@ -468,16 +468,22 @@ def test_cli_train_needs_cuda_unless_cpu_is_asked(tree, tmp_path,
 @pytest.mark.parametrize("flags", [["--multihost"],
                                    ["--input_mode", "prefetch"],
                                    ["--input_mode", "device_cache"]])
-def test_unported_train_flags_raise(tree, tmp_path, flags):
-    """--multihost is still refused by its ROADMAP item (A8); the input
-    modes, once refused the same way, train (tests/
-    test_torch_input_modes.py holds them against `stream`)."""
+def test_unported_train_flags_raise(tree, tmp_path, flags, monkeypatch):
+    """The flags once refused by their ROADMAP items: --multihost joins
+    the torchrun world and, outside one, says so
+    (tests/test_torch_multiproc.py runs it under two ranks); the input
+    modes train (tests/test_torch_input_modes.py holds them against
+    `stream`)."""
     cfg = _write_cfg(tree, tmp_path / "cfg.txt")
     args = ["train", "--cfg", cfg, "--obj_name", "ape", "--device", "cpu",
             "--from_scratch", "--output_dir", str(tmp_path / "o")] + flags
     if flags == ["--multihost"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*A8"):
+        for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+            monkeypatch.delenv(k, raising=False)
+        with pytest.raises(RuntimeError, match="no torch.distributed world"
+                           ".*torchrun"):
             cli.main(args)
+        assert not os.path.exists(tmp_path / "o")
         return
     assert cli.main(args + ["--max_steps", "1", "--log_freq", "1",
                             "--val_mode", "loss"]) == 0

@@ -3,7 +3,10 @@
   python -m zebrapose_tpu_torch train --cfg cfg.txt --obj_name ape \
       [--from_scratch | --pretrained_backbone resnet34.pth] [--bf16] \
       [--qat] [--max_steps N] [--log_freq N] [--cache_images] \
-      [--input_mode stream|prefetch|device_cache] [--device cuda|cpu]
+      [--input_mode stream|prefetch|device_cache] [--multihost] \
+      [--device cuda|cpu]
+  python -m torch.distributed.run --nproc_per_node N -m zebrapose_tpu_torch \
+      train ...              (data parallel: one process a card)
   python -m zebrapose_tpu_torch test --cfg cfg.txt --obj_name ape \
       --ckpt_file <.npz or .pth> [--batch_size N] [--escalate_h 256] \
       [--int8] [--debug] [--device cuda|cpu]
@@ -23,6 +26,8 @@
   python -m zebrapose_tpu_torch train-fleet --cfg cfg.txt \
       --obj_names ape can [--from_scratch] [--bf16] [--max_steps N] \
       [--log_freq N] [--device cuda|cpu]
+  python -m torch.distributed.run --nproc_per_node N -m zebrapose_tpu_torch \
+      train-fleet ...        (the members spread over the cards)
   python -m zebrapose_tpu_torch test-fleet --cfg cfg.txt \
       --obj_names ape can --ckpt_files a.pth b.pth [--batch_size N] \
       [--mask_rcnn] [--roi_slice] [--escalate_h 256] [--int8] [--debug] \
@@ -57,8 +62,15 @@ that `test` loads) and `logs/metrics.jsonl`; `--qat` trains through the
 fake-quant convs, and the checkpoint loads unchanged into `--int8`;
 `--input_mode prefetch` copies each batch to the card one step ahead on
 a side stream, `device_cache` uploads the training splits' pixels once
-and gathers each batch on the card (`data/pipeline.py`). Its
-`--multihost` raises NotImplementedError (A8). `test --debug` writes the
+and gathers each batch on the card (`data/pipeline.py`). Under torchrun
+(`python -m torch.distributed.run --nproc_per_node N`, one process a
+card, cuda:LOCAL_RANK) `train` is data parallel over the N cards
+(`parallel/mesh.py`: BatchNorm statistics, the histogram and the
+metrics over the global batch, lr × N and iterations ÷ N) and
+`train-fleet` gives each rank its share of the K members (the fleet
+padded to a multiple of N with ghost rows); `--multihost` joins the
+torchrun world across nodes, and fails without one. Only rank 0 prints,
+logs and writes checkpoints. `test --debug` writes the
 reference's debug artifacts (mask panels, code-error grids, pose
 outlines; `utils/visualize.py`) under `<run dir>/debug`, and
 `visualize` does so for one frame (`--scene`, `--im`). `--int8` on
@@ -132,7 +144,6 @@ def _pnp_cfg_from_args(args):
     return PnPConfig(**kw)
 
 
-_UNPORTED = "is not ported yet (see ROADMAP.md, queue A)"
 _INT8_HELP = ("int8 conv compute: per-channel weight and dynamic "
               "per-tensor activation quantization of the convs above the "
               "gate, int32 accumulation (the int8 CUDA kernels)")
@@ -171,7 +182,9 @@ def _add_train(sub):
                         "(typically a short fine-tune of a float "
                         "checkpoint)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (not ported yet)")
+                   help="join the torchrun world (torch.distributed: NCCL "
+                        "on CUDA, gloo on the CPU) for multi-node data "
+                        "parallel training; fails without one")
     p.add_argument("--input_mode", default="stream",
                    choices=["stream", "prefetch", "device_cache"],
                    help="stream = host MixedBatchIterator (default); "
@@ -193,15 +206,43 @@ def _add_train(sub):
     _add_device(p)
 
 
+def _world(args, multihost: bool = False):
+    """The command's data-parallel world and whether the command joined
+    its process group (and leaves it at the end): `--multihost` joins
+    the torchrun world and fails without one; otherwise the torchrun
+    world when there is one, else one process on `--device`."""
+    import torch.distributed as dist
+
+    from zebrapose_tpu_torch.parallel.mesh import (
+        initialize_multihost,
+        make_mesh,
+    )
+
+    joined = not dist.is_initialized()
+    world = initialize_multihost(device=args.device) if multihost \
+        else make_mesh(args.device)
+    if dist.is_initialized() and world.is_main:
+        print(f"world: {world.size} rank(s) over {world.backend}, rank 0 "
+              f"on {world.device}")
+    return world, joined and dist.is_initialized()
+
+
 def _train(args) -> int:
-    if args.multihost:
-        raise NotImplementedError("--multihost " + _UNPORTED + " (A8)")
+    from zebrapose_tpu_torch.parallel.mesh import shutdown
+
+    world, joined = _world(args, args.multihost)
+    try:
+        return _train_in(args, world)
+    finally:
+        if joined:
+            shutdown()
+
+
+def _train_in(args, world) -> int:
     from zebrapose_tpu_torch.config import ZebraConfig
     from zebrapose_tpu_torch.train.trainer import build_train_setup, fit
-    from zebrapose_tpu_torch.utils.device import resolve_device
     from zebrapose_tpu_torch.utils.profiling import profile_trace
 
-    device = resolve_device(args.device)
     cfg = ZebraConfig.from_file(args.cfg)
     out = os.path.join(args.output_dir, f"{cfg.dataset_name}_{args.obj_name}")
     res = build_train_setup(
@@ -213,10 +254,10 @@ def _train(args) -> int:
         accum_steps=args.accum_steps,
         gt_dir_suffix="_GT" if args.gt_labels == "v1" else "_GT_v2",
         device_cache=args.input_mode == "device_cache",
-        device_prefetch=args.input_mode == "prefetch", device=device)
+        device_prefetch=args.input_mode == "prefetch", world=world)
     timing = {}
     try:
-        with profile_trace(args.profile):
+        with profile_trace(args.profile if world.is_main else None):
             best = fit(res, log_freq=args.log_freq, max_steps=args.max_steps,
                        val_mode=args.val_mode, timing=timing)
         # where this run's time went, in seconds (fit's stages)
@@ -224,7 +265,8 @@ def _train(args) -> int:
     finally:
         res.ckpt.close()
         res.logger.close()
-    print(f"best val recall: {best}")
+    if world.is_main:
+        print(f"best val recall: {best}")
     return 0
 
 
@@ -284,11 +326,20 @@ def _add_fleet(sub):
 
 
 def _train_fleet(args) -> int:
+    from zebrapose_tpu_torch.parallel.mesh import shutdown
+
+    world, joined = _world(args)
+    try:
+        return _train_fleet_in(args, world)
+    finally:
+        if joined:
+            shutdown()
+
+
+def _train_fleet_in(args, world) -> int:
     from zebrapose_tpu_torch.config import ZebraConfig
     from zebrapose_tpu_torch.train.fleet import build_fleet_setup, fit_fleet
-    from zebrapose_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
     cfg = ZebraConfig.from_file(args.cfg)
     fleet = build_fleet_setup(
         cfg, args.obj_names, os.path.join(args.output_dir,
@@ -297,7 +348,7 @@ def _train_fleet(args) -> int:
         pretrained_backbone=(None if args.from_scratch
                              else args.pretrained_backbone),
         bf16=args.bf16, gamma=args.gamma, log_freq=args.log_freq,
-        cache_images=args.cache_images, device=device)
+        cache_images=args.cache_images, world=world)
     timing = {}
     try:
         best = fit_fleet(fleet, log_freq=args.log_freq,
@@ -309,8 +360,9 @@ def _train_fleet(args) -> int:
         for m in fleet.members:
             m.ckpt.close()
             m.logger.close()
-    for name, b in zip(args.obj_names, best):
-        print(f"{name}: best val recall {b}")
+    if world.is_main:
+        for name, b in zip(args.obj_names, best):
+            print(f"{name}: best val recall {b}")
     return 0
 
 

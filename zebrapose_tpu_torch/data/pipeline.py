@@ -487,7 +487,9 @@ class DeviceDatasetCache:
     CropDatasetHosts, uploaded to device memory once as uint8; a step
     then sends only int indices and roi params and gathers its batch on
     the device (`gather_preprocess_batch`). Port of JAX
-    `pipeline.py::DeviceDatasetCache` on one device.
+    `pipeline.py::DeviceDatasetCache`: JAX replicates the cache over its
+    mesh; in a data-parallel world each rank holds the whole split on
+    its own card, and its `CachedBatchIterator` draws its rows.
 
     Costs ~2.46 MB of device memory a 480x640 sample (rgb + label + two
     masks): for per-object real splits, not 50k-image PBR trees (the
@@ -545,7 +547,9 @@ class CachedBatchIterator:
     indices and roi params (the split of `MixedBatchIterator`, no worker
     threads: there are no bytes to read). Indices come from
     `default_rng(seed)` in JAX's order, so `idx` equals JAX's at the
-    same seed."""
+    same seed; in a data-parallel world each rank draws its share of
+    the global batch with seed = its rank, as JAX's process does with
+    seed = jax.process_index()."""
 
     def __init__(self, cache: DeviceDatasetCache, batch_size: int,
                  second_dataset_ratio: float = 0.75, seed: int = 0):
@@ -584,12 +588,14 @@ class DevicePrefetchIterator:
     caching allocator does not give their memory to a later copy while
     the step still reads them. Port of JAX
     `pipeline.py::DevicePrefetchIterator` (`shard_batch` one step ahead)
-    on one device.
+    on this rank's device.
 
     The worker sets the device in its own thread; its exception is
     raised from `__next__`; `close()` stops it and closes the inner
     iterator. On the CPU it is the same queue with no stream. Feeds are
-    dicts of tensors on `device` (`device_resident` marks this)."""
+    dicts of tensors on `device` (`device_resident` marks this): in a
+    data-parallel world, the rank's card (JAX shards the feed over its
+    mesh)."""
 
     device_resident = True
 

@@ -20,7 +20,8 @@ runs as:
 RANSAC draws of object k in the batch at `start` come from
 `fleet_generator(seed, start, k)`, the counterpart of JAX's
 fold_in(fold_in(key, start), k); object 0's generator is the
-single-object path's `batch_generator(seed, start)`.
+single-object path's `batch_generator(seed, start)`. k is the object's
+index in the whole fleet, so its poses do not depend on the world.
 
 `run_test_fleet` and `run_vivo_fleet` are the `test-fleet` and
 `vivo-fleet` commands on the device (CUDA unless "cpu" is asked for).
@@ -30,8 +31,14 @@ With `int8` the members' convs are the int8 serving convs
 scale is then taken over its own crops, as under JAX's vmap, and the
 int8 kernels need no batching rule. `run_test_fleet(debug=True)` writes
 each object's debug artifact set under `debug/<obj_name>/`
-(`eval/runner.py::dump_debug_set`). The port drives one card, so there
-is no model-axis mesh (A8).
+(`eval/runner.py::dump_debug_set`).
+
+`world=` (`parallel/mesh.py`) is JAX's `mesh=`: the K objects are split
+over the ranks, each rank evaluates its K/W objects (rank r the objects
+[r·K/W, (r+1)·K/W)), and rank 0 gathers their poses and writes the
+per-object CSVs, the merged CSV and the metrics (every rank returns
+them). K % W != 0 is refused, as JAX refuses a fleet its mesh does not
+divide.
 """
 
 from __future__ import annotations
@@ -53,6 +60,11 @@ from zebrapose_tpu_torch.ops.pnp import (
     PnPConfig,
     RansacDraws,
     decode_to_pose_batch,
+)
+from zebrapose_tpu_torch.parallel.mesh import (
+    World,
+    all_gather_object,
+    broadcast_object,
 )
 from zebrapose_tpu_torch.utils.device import resolve_device
 
@@ -199,7 +211,7 @@ def make_fleet_eval_step(forward_fn: Callable, lut_points, lut_valid,
 def fleet_infer(datasets, fleet_step, variables, batch_size: int,
                 seed: int = 0, collect_masks: bool = False,
                 collect_codes: bool = False, num_workers: int = 4,
-                device=None,
+                device=None, first: int = 0,
                 draws_for: Optional[Callable[[int], Sequence[RansacDraws]]]
                 = None,
                 timing: Optional[Dict[str, float]] = None):
@@ -212,8 +224,10 @@ def fleet_infer(datasets, fleet_step, variables, batch_size: int,
 
     Batches are collated ahead on a producer thread (reads on
     `num_workers` threads) and fetched one batch late, as in
-    `run_inference`; draws come from `fleet_generator(seed, start, k)`,
-    or from `draws_for(start)` (one RansacDraws an object) when given.
+    `run_inference`; draws come from `fleet_generator(seed, start,
+    first + k)` (`first`: the fleet index of the first dataset's
+    object), or from `draws_for(start)` (one RansacDraws an object) when
+    given.
     `timing` gets run_inference's keys (inference_s, collate_s, wait_s,
     step_s, fetch_s, and device_s on CUDA)."""
     if collect_codes and not collect_masks:
@@ -271,8 +285,9 @@ def fleet_infer(datasets, fleet_step, variables, batch_size: int,
                     clock) as batches:
         for start, cat in batches:
             kw = ({"draws": draws_for(start)} if draws_for is not None
-                  else {"generators": [fleet_generator(seed, start, k, dev)
-                                       for k in range(k_models)]})
+                  else {"generators": [
+                      fleet_generator(seed, start, first + k, dev)
+                      for k in range(k_models)]})
             t0 = time.perf_counter()
             if dev.type == "cuda":
                 spans.append((torch.cuda.Event(enable_timing=True),
@@ -349,6 +364,27 @@ def _fleet_step(cfg, model, lp, lv, pnp_cfg, mask_rcnn: bool,
         return_codes=return_codes, vmap_forward=not int8, device=dev)
 
 
+def _world_rows(world: Optional[World], k: int, dev) -> Tuple[World,
+                                                              range]:
+    """The world (one process on `dev` when None) and the objects its
+    rank evaluates; refuses K % W != 0."""
+    world = world or World(device=dev)
+    if k % world.size:
+        raise ValueError(
+            f"fleet size {k} not divisible by world size {world.size}; "
+            f"serve K%W==0 objects or run fewer ranks")
+    per = k // world.size
+    return world, range(world.rank * per, (world.rank + 1) * per)
+
+
+def _gather_rows(out: tuple, world: World) -> tuple:
+    """Each rank's fleet_infer lists (one entry an object), concatenated
+    in rank order (the fleet's object order)."""
+    parts = all_gather_object(out, world)
+    return tuple(sum((list(p[j]) for p in parts), [])
+                 for j in range(len(out)))
+
+
 def _share_slice_buffer(datasets) -> None:
     """Lockstep batches stack across objects, so every dataset emits one
     roi_slice buffer shape: the fleet-wide max of their naturals."""
@@ -364,7 +400,8 @@ def run_test_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
                    pnp_cfg: Optional[PnPConfig] = None,
                    int8: bool = False, max_samples: Optional[int] = None,
                    mask_rcnn: bool = False, roi_slice: bool = False,
-                   debug: bool = False, device=None) -> dict:
+                   debug: bool = False, device=None,
+                   world: Optional[World] = None) -> dict:
     """Evaluate K objects with one fleet step a batch (the fleet `test`):
     per-object datasets advance in lockstep, and each object gets its
     BOP CSV and ADD / ADD-S metrics, plus one merged submission CSV
@@ -377,7 +414,8 @@ def run_test_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
     reference test.py:315-441) under `debug/<obj_name>/` and its
     refiner's frames under `debug/<obj_name>/refine`, as `run_test
     --debug` does for one object. Prints a `timing {...}` line (seconds
-    by stage)."""
+    by stage). `world`: the objects split over its ranks (module
+    docstring); the device is then the rank's."""
     from zebrapose_tpu_torch.data import bop_io
     from zebrapose_tpu_torch.data.bop_writer import (
         merge_csv,
@@ -394,7 +432,8 @@ def run_test_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
 
     if len(ckpt_files) != len(obj_names):
         raise ValueError("need one checkpoint per object")
-    dev = resolve_device(device)
+    dev = world.device if world is not None else resolve_device(device)
+    world, rows = _world_rows(world, len(obj_names), dev)
     t0 = time.perf_counter()
     # the non-challenge walk does not depend on the object: walk once
     shared = None if cfg.bop_challange else bop_io.get_dataset(
@@ -409,16 +448,20 @@ def run_test_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
     if roi_slice:
         _share_slice_buffer([oe.dataset for oe in oes])
     t1 = time.perf_counter()
-    model, variables = _fleet_model(cfg, variant, ckpt_files, dev, int8)
-    lp, lv = stack_luts([oe.lut for oe in oes])
+    model, variables = _fleet_model(
+        cfg, variant, [ckpt_files[i] for i in rows], dev, int8)
+    lp, lv = stack_luts([oes[i].lut for i in rows])
     step = _fleet_step(cfg, model, lp, lv, pnp_cfg, mask_rcnn,
                        cfg.refine or debug, dev, int8, return_codes=debug)
     t2 = time.perf_counter()
 
     timing: Dict[str, float] = {}
-    out = fleet_infer([oe.dataset for oe in oes], step, variables,
-                      batch_size, collect_masks=cfg.refine or debug,
-                      collect_codes=debug, device=dev, timing=timing)
+    out = _gather_rows(fleet_infer(
+        [oes[i].dataset for i in rows], step, variables, batch_size,
+        collect_masks=cfg.refine or debug, collect_codes=debug,
+        device=dev, timing=timing, first=rows.start), world)
+    if not world.is_main:
+        return broadcast_object(None, world)
     Rs, ts, ok = out[:3]
     t3 = time.perf_counter()
     os.makedirs(output_dir, exist_ok=True)
@@ -458,7 +501,8 @@ def run_test_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
     # where this run's time went, in seconds (fleet_infer's stages;
     # finish_s: refinement, pose errors and the CSVs)
     print("timing " + json.dumps(timing))
-    return {"per_object": per_object, "merged_csv": merged}
+    return broadcast_object({"per_object": per_object,
+                             "merged_csv": merged}, world)
 
 
 def run_vivo_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
@@ -466,15 +510,17 @@ def run_vivo_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
                    score_threshold: float = 0.2, batch_size: int = 16,
                    pnp_cfg: Optional[PnPConfig] = None,
                    int8: bool = False, mask_rcnn: bool = False,
-                   roi_slice: bool = False, device=None) -> dict:
+                   roi_slice: bool = False, device=None,
+                   world: Optional[World] = None) -> dict:
     """Multi-instance (vivo) evaluation of K objects with one fleet step
     a batch: each object's detected instances above `score_threshold`
     form its dataset (`eval/vivo.py`), all K advance in lockstep, and
     each object's CSV carries the detector scores (failed instances
     score -1 and are dropped), plus one merged submission CSV
     `<output_dir>/<dataset>_vivo_fleet.csv`. Objects without a detection
-    are skipped with a warning (instances 0); int8 as in
-    `run_test_fleet`. Prints a `timing {...}` line."""
+    are skipped with a warning (instances 0); int8 and `world` as in
+    `run_test_fleet` (K: the objects with detections). Prints a `timing
+    {...}` line."""
     from zebrapose_tpu_torch.codec.lut import load_correspondence_lut
     from zebrapose_tpu_torch.data import bop_io
     from zebrapose_tpu_torch.data import detections as det_mod
@@ -488,7 +534,7 @@ def run_vivo_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
 
     if len(ckpt_files) != len(obj_names):
         raise ValueError("need one checkpoint per object")
-    dev = resolve_device(device)
+    dev = world.device if world is not None else resolve_device(device)
     t0 = time.perf_counter()
     rgb_files, cam_by_file = bop_io.list_images_with_cameras(
         cfg.bop_path, cfg.dataset_name, data_folder=cfg.test_folder)
@@ -508,9 +554,10 @@ def run_vivo_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
             resize_method=cfg.resize_method,
             use_segmentation=mask_rcnn, roi_slice=roi_slice)
         if len(dataset) == 0:
-            print(f"WARNING: {name}: no detection above score "
-                  f"{score_threshold} in the split; skipped from the "
-                  "fleet")
+            if world is None or world.is_main:
+                print(f"WARNING: {name}: no detection above score "
+                      f"{score_threshold} in the split; skipped from the "
+                      "fleet")
             per_object[name] = {"instances": 0, "solved": 0,
                                 "solve_rate": 0.0}
             continue
@@ -519,21 +566,25 @@ def run_vivo_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
         raise ValueError("no object has any detected instance")
     if roi_slice:
         _share_slice_buffer([ds for _, _, _, ds, _ in live])
+    world, rows = _world_rows(world, len(live), dev)
+    mine = [live[i] for i in rows]
     t1 = time.perf_counter()
     model, variables = _fleet_model(cfg, variant,
-                                    [ck for _, ck, _, _, _ in live], dev,
+                                    [ck for _, ck, _, _, _ in mine], dev,
                                     int8)
     lp, lv = stack_luts([load_correspondence_lut(os.path.join(
         dataset_dir, "models_GT_color", f"Class_CorresPoint{oid:06d}.txt"))
-        for _, _, oid, _, _ in live])
+        for _, _, oid, _, _ in mine])
     step = _fleet_step(cfg, model, lp, lv, pnp_cfg, mask_rcnn, False, dev,
                        int8)
     t2 = time.perf_counter()
 
     timing: Dict[str, float] = {}
-    Rs, ts, ok = fleet_infer([ds for _, _, _, ds, _ in live], step,
-                             variables, batch_size, device=dev,
-                             timing=timing)
+    Rs, ts, ok = _gather_rows(fleet_infer(
+        [ds for _, _, _, ds, _ in mine], step, variables, batch_size,
+        device=dev, timing=timing, first=rows.start), world)
+    if not world.is_main:
+        return broadcast_object(None, world)
     t3 = time.perf_counter()
     os.makedirs(output_dir, exist_ok=True)
     csvs = []
@@ -553,4 +604,5 @@ def run_vivo_fleet(cfg, obj_names: List[str], ckpt_files: List[str],
     timing.update(prepare_s=t1 - t0, load_model_s=t2 - t1,
                   finish_s=time.perf_counter() - t3)
     print("timing " + json.dumps(timing))
-    return {"per_object": per_object, "merged_csv": merged}
+    return broadcast_object({"per_object": per_object,
+                             "merged_csv": merged}, world)

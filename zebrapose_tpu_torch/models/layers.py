@@ -33,6 +33,7 @@ from zebrapose_tpu_torch.ops.int8_conv import (
     int8_conv2d,
     quantize_act,
 )
+from zebrapose_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def _out_dtype(x: torch.Tensor) -> torch.dtype:
@@ -201,16 +202,24 @@ class TorchBatchNorm(nn.BatchNorm2d):
     batch with the biased variance, so outputs and gradients are
     torch's. The fused kernel updates a copy of the [C] buffer, from
     which the buffer is set. Eval mode is nn.BatchNorm2d's, in plain
-    tensor ops under torch.func transforms (`_eval_tensor_ops`)."""
+    tensor ops under torch.func transforms (`_eval_tensor_ops`).
+
+    With `world` set to a world of more than one rank
+    (`train/state.py::create_train_state` sets it), training takes the
+    statistics over the world's batch, as flax's BatchNorm does over a
+    GSPMD-sharded batch (`_global_batch`)."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
+        self.world = None     # parallel.mesh.World of the train state
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             if torch._C._functorch.is_functorch_wrapped_tensor(x):
                 return self._eval_tensor_ops(x)
             return super().forward(x)
+        if self.world is not None and self.world.distributed:
+            return self._global_batch(x)
         self.num_batches_tracked.add_(1)
         # autograd keeps the variance buffer the kernel got: hand it a
         # copy, so the correction below does not touch a saved tensor
@@ -223,6 +232,36 @@ class TorchBatchNorm(nn.BatchNorm2d):
             keep = (1.0 - self.momentum) * self.running_var
             self.running_var.copy_(keep + (fused - keep) * ((n - 1) / n))
         return y
+
+    def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the world's batch: each channel's sum and sum
+        of squares (in at least float32) and the count, all-reduced with
+        autograd (the backward all-reduces their gradients, so every
+        rank's gradient holds every rank's share through the
+        statistics); flax's variance E[x²] - E[x]², clipped at 0; flax's
+        running-variance rule. Not nn.SyncBatchNorm: it all-gathers,
+        which gloo cannot do on CUDA tensors, and moves the running
+        variance toward the unbiased variance."""
+        self.num_batches_tracked.add_(1)
+        c = x.shape[1]
+        xa = x.to(torch.promote_types(x.dtype, torch.float32))
+        stats = all_reduce_sum(torch.cat([
+            xa.sum(dim=(0, 2, 3)), (xa * xa).sum(dim=(0, 2, 3)),
+            xa.new_full((1,), x.numel() // c)]))
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(
+                m * mean.detach().to(self.running_mean.dtype))
+            self.running_var.mul_(1.0 - m).add_(
+                m * var.detach().to(self.running_var.dtype))
+        shape = (1, c, 1, 1)
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(var.dtype)
+        y = (xa - mean.view(shape)) * scale.view(shape) \
+            + self.bias.to(var.dtype).view(shape)
+        return y.to(x.dtype)
 
     def _eval_tensor_ops(self, x: torch.Tensor) -> torch.Tensor:
         """Eval mode in plain tensor ops, for the fleet's vmapped forward

@@ -28,6 +28,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from zebrapose_tpu_torch.parallel.mesh import World, all_reduce_
+
 
 def sigmoid_l1_mask_loss(mask_logits: torch.Tensor,
                          gt_mask: torch.Tensor) -> torch.Tensor:
@@ -38,17 +40,28 @@ def sigmoid_l1_mask_loss(mask_logits: torch.Tensor,
 
 
 def hamming_histogram(code_logits: torch.Tensor, gt_code: torch.Tensor,
-                      mask_hard: torch.Tensor
+                      mask_hard: torch.Tensor, world: Optional[World] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean hamming loss, per-bit error histogram [n_bits]); mask_hard
-    is the binarized {0,1} predicted mask (train_v2.py:258-260)."""
+    is the binarized {0,1} predicted mask (train_v2.py:258-260).
+
+    With a `world` of more than one rank the histogram is the global
+    batch's: the numerator and the denominator are all-reduced before
+    the division (an average of the ranks' ratios would weight each
+    rank's pixels by its own mask size), so the EMA and the bit weights
+    agree on every rank."""
     if mask_hard.ndim == code_logits.ndim:
         mask_hard = mask_hard[..., 0]
     mask_hard = torch.clamp(torch.round(mask_hard), 0.0, 1.0)
     pred_hard = torch.clamp(torch.round(torch.sigmoid(code_logits)), 0.0, 1.0)
     gt_hard = torch.clamp(torch.round(gt_code), 0.0, 1.0)
     hamm = torch.abs(pred_hard - gt_hard) * mask_hard[..., None]
-    histogram = hamm.sum(dim=(0, 1, 2)) / (mask_hard.sum() + 1.0)
+    errors, pixels = hamm.sum(dim=(0, 1, 2)), mask_hard.sum()
+    if world is not None and world.distributed:
+        both = torch.cat([errors, pixels[None]])
+        all_reduce_([both], world)
+        errors, pixels = both[:-1], both[-1]
+    histogram = errors / (pixels + 1.0)
     return histogram.mean(), histogram
 
 
@@ -85,7 +98,7 @@ class CodeLossConfig:
 def binary_code_loss(code_logits: torch.Tensor, mask_logits: torch.Tensor,
                      gt_code: torch.Tensor,
                      histogram: Optional[torch.Tensor],
-                     cfg: CodeLossConfig
+                     cfg: CodeLossConfig, world: Optional[World] = None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                 torch.Tensor]:
     """BinaryCodeLoss.forward: (loss, new_histogram, hamming).
@@ -93,7 +106,8 @@ def binary_code_loss(code_logits: torch.Tensor, mask_logits: torch.Tensor,
     The hamming histogram and the optional code-logit masking use the
     hard {0,1} predicted mask, detached. `histogram` is the EMA state
     [n_bits]; `fresh_histogram(n)` (a negative sentinel) on step 0
-    reproduces the reference's `self.histogram is None`.
+    reproduces the reference's `self.histogram is None`. `world`: the
+    histogram over its global batch (`hamming_histogram`).
     """
     mask_hard = (mask_logits > 0).to(code_logits.dtype).detach()
     if mask_hard.ndim == code_logits.ndim and mask_hard.shape[-1] == 1:
@@ -107,7 +121,7 @@ def binary_code_loss(code_logits: torch.Tensor, mask_logits: torch.Tensor,
     if cfg.use_histogram_weighting:
         with torch.no_grad():
             hamm_loss, hist_new = hamming_histogram(code_logits, gt_code,
-                                                    mask_hard)
+                                                    mask_hard, world)
             # EMA; a negative sentinel histogram means "uninitialized"
             new_hist = torch.where(
                 torch.all(histogram < 0), hist_new,
@@ -141,15 +155,16 @@ def total_loss(outputs: Dict[str, torch.Tensor],
                gt_code: torch.Tensor,
                histogram: torch.Tensor,
                cfg: CodeLossConfig,
-               binary_loss_weight: float = 3.0
+               binary_loss_weight: float = 3.0,
+               world: Optional[World] = None
                ) -> Tuple[torch.Tensor, torch.Tensor,
                           Dict[str, torch.Tensor]]:
     """Train objective (train_v2.py:262-269): (loss, new_histogram,
     metrics). The losses are computed in float32 whatever the model's
-    compute type."""
+    compute type; the histogram over `world`'s global batch."""
     outputs = {k: v.float() for k, v in outputs.items()}
     code_l, new_hist, hamm = binary_code_loss(
-        outputs["code"], outputs["mask"], gt_code, histogram, cfg)
+        outputs["code"], outputs["mask"], gt_code, histogram, cfg, world)
     mask_l = sigmoid_l1_mask_loss(outputs["mask"], gt_mask)
     metrics = {"loss_code": code_l, "loss_mask": mask_l, "hamming": hamm}
     loss = binary_loss_weight * code_l + mask_l

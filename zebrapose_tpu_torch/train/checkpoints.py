@@ -17,6 +17,11 @@ exact resume. Files: `<dir>/steps/step_<N>.pth`,
 `save` copies the state to host memory in the caller's thread and
 writes the file on a background thread, so the write overlaps the next
 steps; `wait` (and every reader) waits for the writes in flight.
+
+In a data-parallel world only rank 0 writes (`write=False` on the
+others: `save` and `save_best` do nothing there), and every rank
+restores the same file (`parallel.mesh.replicate` then checks that the
+ranks stand at one step).
 """
 
 from __future__ import annotations
@@ -85,11 +90,13 @@ def _write(payload: Dict, path: str) -> None:
 class CheckpointManager:
     """Rolling step checkpoints (keep `keep`) + one best checkpoint."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, write: bool = True):
         self.directory = os.path.abspath(directory)
         self.steps_dir = os.path.join(self.directory, "steps")
         self.best_dir = os.path.join(self.directory, "best")
-        os.makedirs(self.steps_dir, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(self.steps_dir, exist_ok=True)
         self.keep = keep
         self._writer = ThreadPoolExecutor(max_workers=1)
         self._pending: List[Future] = []
@@ -101,6 +108,8 @@ class CheckpointManager:
     def save(self, state: TrainState) -> None:
         """Copy the state to the host now; write it and drop the oldest
         files beyond `keep` on the writer thread."""
+        if not self.write:
+            return
         payload = state_payload(state)
         path = self.path(int(state.step))
 
@@ -141,6 +150,8 @@ class CheckpointManager:
 
     def save_best(self, state: TrainState, score: float) -> None:
         """Replace the best checkpoint with `state` (written now)."""
+        if not self.write:
+            return
         self.wait()
         if os.path.isdir(self.best_dir):
             shutil.rmtree(self.best_dir)

@@ -22,9 +22,17 @@ hold the fleet in one state.
 Semantics per member are the single-object recipe's: BatchNorm batches,
 the histogram EMA, the Adam schedule and best-checkpoint selection are
 per member. The fleet's evaluation (`eval/fleet_serve.py`) does vmap
-one forward over the stacked weights. The port drives one card: no
-model-axis mesh, no ghost rows (JAX pads the fleet to a multiple of its
-devices); a multi-card fleet is ROADMAP A8.
+one forward over the stacked weights.
+
+Across a world of W ranks (`parallel/mesh.py`, one process a card under
+torchrun), the counterpart of JAX's model-axis mesh: the fleet is padded
+to Kp, the next multiple of W, with ghost rows (copies of the last
+member, `stack_states(pad_to=)`) and rank r builds and owns rows
+[r·Kp/W, (r+1)·Kp/W) (`member_rows`), as P("model") shards the padded
+axis. `fleet_train_step` needs no collective, as JAX's `shard_map` has
+none; each member's checkpoints and logs come from the rank that owns
+it, ghost rows are never saved or reported, and `fit_fleet` returns the
+K real members' bests on every rank.
 """
 
 from __future__ import annotations
@@ -39,6 +47,11 @@ import numpy as np
 import torch
 
 from zebrapose_tpu_torch.models.losses import CodeLossConfig, total_loss
+from zebrapose_tpu_torch.parallel.mesh import (
+    World,
+    all_gather_object,
+    make_mesh,
+)
 from zebrapose_tpu_torch.train.state import TrainState
 
 def stack_tensors(xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -89,12 +102,23 @@ def _owner(model: torch.nn.Module, name: str):
     return model.get_submodule(path), leaf
 
 
-def stack_states(states: Sequence[TrainState]) -> FleetState:
+def stack_states(states: Sequence[TrainState],
+                 pad_to: Optional[int] = None) -> FleetState:
     """Stack K members' TrainStates (one architecture, Adam) into one
     FleetState with their Adam moments; each member's module is rebound
     to views of its slice (its own tensors are dropped). A resume needs
     a common step: members restored at different steps are refused, as
-    in JAX."""
+    in JAX.
+
+    `pad_to`: pad the member axis to this length with ghost rows, copies
+    of the last state (weights, BN statistics, Adam's moments, the
+    histogram and the best score) each with a module and tensors of its
+    own, since every member's module is rebound to views of its slice.
+    Ghost rows train on the last member's batches and are never saved or
+    reported (`FleetResources.n_pad`)."""
+    if pad_to is not None and pad_to > len(states):
+        states = list(states) + [copy.deepcopy(states[-1])
+                                 for _ in range(pad_to - len(states))]
     steps = sorted({int(s.step) for s in states})
     if len(steps) > 1:
         raise ValueError(
@@ -215,34 +239,87 @@ def fleet_train_step(state: FleetState, batch: Dict[str, torch.Tensor],
     return out
 
 
+def member_rows(k: int, world: World) -> range:
+    """The rows of a K-member fleet that `world`'s rank owns: the fleet
+    padded to Kp, the next multiple of W, rank r owning [r·Kp/W,
+    (r+1)·Kp/W); rows from K on are ghost rows."""
+    per = -(-k // world.size)
+    return range(world.rank * per, (world.rank + 1) * per)
+
+
 @dataclasses.dataclass
 class FleetResources:
     """K single-object TrainResources driven by one fleet program.
     Members share every shape-deciding setting (crop sizes, code,
     architecture, batch size); datasets, LUTs, checkpoints and logs are
-    per member."""
+    per member.
+
+    In a world of W ranks: `members` are the real members this rank
+    owns, `state` holds its rows (those members, then its ghost rows),
+    `first` is the fleet index of its first row and `n_pad` the ghost
+    rows of the whole fleet (Kp - K). A ghost row trains on the batches
+    of member K-1; `ghost_source` is member K-1's data on a rank that
+    holds ghost rows without it (no checkpoints, no logs)."""
     members: list  # List[TrainResources]
     state: FleetState
+    n_pad: int = 0
+    world: World = World()
+    first: int = 0
+    ghost_source: Optional[object] = None  # TrainResources
+
+    @property
+    def rows(self) -> list:
+        """The TrainResources of each of this rank's rows: a ghost row's
+        are member K-1's."""
+        src = self.ghost_source or self.members[-1]
+        return self.members + [src] * (len(self.state.members)
+                                       - len(self.members))
 
 
 def build_fleet_setup(cfg, obj_names: Sequence[str], output_dir: str,
+                      world: Optional[World] = None,
                       **member_kwargs) -> FleetResources:
     """A fleet from one config and K object names: each member built by
-    `build_train_setup` (one card, so no world scaling of lr or
+    `build_train_setup` on a world of one (no world scaling of lr or
     iterations: each object trains at the single-GPU recipe) under
-    `<output_dir>/<obj_name>/`, then their states stacked."""
+    `<output_dir>/<obj_name>/`, then their states stacked. `world`
+    (default `parallel.mesh.make_mesh(device)`: the torchrun world when
+    there is one) spreads the members over its ranks (`member_rows`):
+    this rank builds only the members it owns, and its ghost rows copy
+    member K-1. Ranks restored at different steps are refused."""
     from zebrapose_tpu_torch.train.trainer import build_train_setup
 
-    members = [build_train_setup(cfg, name, os.path.join(output_dir, name),
-                                 **member_kwargs) for name in obj_names]
+    device = member_kwargs.pop("device", None)
+    if world is None:
+        world = make_mesh(device)
+    one = World(device=world.device)
+    k = len(obj_names)
+    rows = member_rows(k, world)
+
+    def build(i, write=True):
+        return build_train_setup(
+            cfg, obj_names[i], os.path.join(output_dir, obj_names[i]),
+            world=one, write=write, **member_kwargs)
+
+    members = [build(i) for i in rows if i < k]
+    # only ghost rows here: member K-1's data, writing nothing
+    ghost_source = None if members else build(k - 1, write=False)
     shapes = {(m.cfg.BoundingBox_CropSize_image,
                m.cfg.BoundingBox_CropSize_GT, m.cfg.number_of_itration,
                m.cfg.divide_number_each_itration, m.cfg.batch_size)
               for m in members}
     if len(shapes) > 1:
         raise ValueError(f"fleet members disagree on shapes: {shapes}")
-    return FleetResources(members=members,
-                          state=stack_states([m.state for m in members]))
+    state = stack_states([m.state for m in members or [ghost_source]],
+                         pad_to=len(rows))
+    steps = sorted(set(all_gather_object(state.step, world)))
+    if len(steps) > 1:
+        raise ValueError(
+            f"fleet members restored at different steps {steps}; resume "
+            "them to a common step (or train separately)")
+    return FleetResources(members=members, state=state,
+                          n_pad=len(rows) * world.size - k, world=world,
+                          first=rows.start, ghost_source=ghost_source)
 
 
 def fleet_eval_step(members, state: FleetState):
@@ -268,12 +345,15 @@ def fleet_eval_step(members, state: FleetState):
         device=state.histogram.device)
 
 
-def _fleet_validate(members, state: FleetState, fleet_eval
+def _fleet_validate(members, state: FleetState, fleet_eval, first: int = 0
                     ) -> List[Dict[str, float]]:
     """Pose validation of the whole fleet: the K val splits stream
     through the fleet eval program in lockstep with the stacked weights
     and BN statistics (eval mode, so nothing moves), and each member
-    gets the single-object ADD / ADD-S metric dict."""
+    gets the single-object ADD / ADD-S metric dict. `members` are the
+    rows' resources (a ghost row re-walks member K-1's split) and
+    `first` the fleet index of the first: RANSAC draws follow the
+    member's fleet index, not its place on this rank."""
     from zebrapose_tpu_torch.eval.evaluate import pose_errors, summarize
     from zebrapose_tpu_torch.eval.fleet_serve import fleet_infer
 
@@ -286,7 +366,8 @@ def _fleet_validate(members, state: FleetState, fleet_eval
     try:
         Rs, ts, ok = fleet_infer(
             [m.val_dataset for m in members], fleet_eval, variables,
-            min(m.val_batch_size for m in members), device=dev)
+            min(m.val_batch_size for m in members), device=dev,
+            first=first)
     finally:
         state.template.train(was_training)
     out = []
@@ -307,13 +388,20 @@ def fleet_batch(members, it: int, device,
     member's iterator, object-major, preprocessed and augmented on the
     device with one generator for the K·B batch
     (`trainer.aug_generator(it)`), as JAX draws one key for the flat
-    batch. `clock["wait_s"]` adds the time spent waiting for batches."""
+    batch. A member listed again (the ghost rows of member K-1) takes
+    the batch its first row took, as JAX's ghost rows re-train on the
+    last member's batch. `clock["wait_s"]` adds the time spent waiting
+    for batches."""
     from zebrapose_tpu_torch.data.pipeline import FEED_KEYS, preprocess_batch
     from zebrapose_tpu_torch.train.trainer import aug_generator
 
     cfg = members[0].cfg
     t0 = time.perf_counter()
-    raws = [next(m.train_iter) for m in members]
+    drawn: Dict[int, Dict[str, np.ndarray]] = {}
+    for m in members:
+        if id(m) not in drawn:
+            drawn[id(m)] = next(m.train_iter)
+    raws = [drawn[id(m)] for m in members]
     if clock is not None:
         clock["wait_s"] += time.perf_counter() - t0
     feed = {k: torch.as_tensor(np.concatenate([r[k] for r in raws]))
@@ -346,7 +434,7 @@ def timed_fleet_steps(fleet: FleetResources, n_steps: int = 500,
     from a drained device to the last step's losses read back. `timing`
     gets host_ms, wait_s and on CUDA event_ms. No checkpoints; the
     iterators stay open; the state advances."""
-    state, members = fleet.state, fleet.members
+    state, members = fleet.state, fleet.rows
     dev = state.histogram.device
     kw = _step_kw(members)
     clock = {"wait_s": 0.0}
@@ -384,28 +472,31 @@ def fit_fleet(fleet: FleetResources, log_freq: int = 1000,
     last) each member logs its metrics, histogram and per-step losses
     under its own logger, saves its own rolling `.pth` checkpoint, and
     after the fleet's pose validation its best one. `timing` gets fit's
-    keys."""
+    keys. In a world of several ranks every rank calls it: each trains,
+    validates, logs and checkpoints the members it owns, and each
+    returns the K members' bests."""
     t_run = time.perf_counter()
     members = fleet.members
+    rows = fleet.rows
     state = fleet.state
     dev = state.histogram.device
     clock = dict.fromkeys(("wait_s", "step_s", "log_s", "val_s"), 0.0)
     start_step = state.step
-    total = min(m.total_iterations for m in members)
+    total = min(m.total_iterations for m in rows)
     end_step = total if max_steps is None else \
         min(start_step + max_steps, total)
     fleet_eval = None
-    if validate and all(m.val_dataset is not None for m in members):
-        fleet_eval = fleet_eval_step(members, state)
-    best = list(state.best_score)
+    if validate and all(m.val_dataset is not None for m in rows):
+        fleet_eval = fleet_eval_step(rows, state)
+    best = list(state.best_score[:len(members)])
     step_losses = []
-    kw = _step_kw(members)
+    kw = _step_kw(rows)
     try:
         for it in range(start_step, end_step):
             t0 = time.perf_counter()
             waited = clock["wait_s"]
             metrics = fleet_train_step(
-                state, fleet_batch(members, it, dev, clock), **kw)
+                state, fleet_batch(rows, it, dev, clock), **kw)
             step_losses.append(metrics["loss_total"])
             clock["step_s"] += time.perf_counter() - t0 - (
                 clock["wait_s"] - waited)
@@ -429,7 +520,8 @@ def fit_fleet(fleet: FleetResources, log_freq: int = 1000,
 
                 t0 = time.perf_counter()
                 if fleet_eval is not None:
-                    val = _fleet_validate(members, state, fleet_eval)
+                    val = _fleet_validate(rows, state, fleet_eval,
+                                          fleet.first)
                     for i, m in enumerate(members):
                         prefix = "ADD-S" if m.symmetric else "ADD"
                         recall = val[i][f"{prefix}_recall_0.1d"]
@@ -440,10 +532,12 @@ def fit_fleet(fleet: FleetResources, log_freq: int = 1000,
                             m.ckpt.save_best(index_state(state, i), recall)
                 clock["val_s"] += time.perf_counter() - t0
     finally:
-        for m in members:
+        for m in members + ([fleet.ghost_source] if fleet.ghost_source
+                            else []):
             m.train_iter.close()
             m.ckpt.wait()     # the writes in flight reach the disk
     if timing is not None:
         timing.update(clock, fit_s=time.perf_counter() - t_run,
                       steps=end_step - start_step)
-    return best
+    return [b for part in all_gather_object(best, fleet.world)
+            for b in part]

@@ -15,6 +15,18 @@ across the k micro-batches, the gradients add up in `.grad`, BatchNorm
 running statistics and the histogram EMA advance micro-batch by
 micro-batch, and the mean gradient is applied once. `train_step` is the
 k = 1 case of the same functions.
+
+Data parallelism (`state.world` with more than one rank, one process a
+card): BatchNorm statistics (the model's layers hold the world,
+`create_train_state`) and the histogram are the global batch's; the summed
+gradients are all-reduced once, at the update (one flat all-reduce a
+dtype, then divided by k·W: the gradient of the global mean loss, as
+JAX sums micro-gradients and applies once), so every rank applies the
+same gradient to the same weights and the replicas stay bit-identical;
+the metrics are averaged over the world. Not DDP: its buckets
+all-reduce during each micro-batch's backward, and the state dict's
+names would change; the all-reduce at the update needs neither hooks
+nor `no_sync`.
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ from typing import Dict, Iterable
 import torch
 
 from zebrapose_tpu_torch.models.losses import CodeLossConfig, total_loss
+from zebrapose_tpu_torch.parallel.mesh import all_reduce_, mean_over_world
 from zebrapose_tpu_torch.train.state import TrainState
 
 
@@ -47,7 +60,7 @@ def grad_step(state: TrainState, batch: Dict[str, torch.Tensor],
     gt_entire = batch.get("entire_mask") if predict_entire_mask else None
     loss, new_hist, metrics = total_loss(
         outputs, batch["mask"], gt_entire, batch["code"], state.histogram,
-        loss_cfg, binary_loss_weight)
+        loss_cfg, binary_loss_weight, state.world)
     loss.backward()
     state.histogram = new_hist
     return {k: v.detach() for k, v in metrics.items()}
@@ -55,11 +68,15 @@ def grad_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
 def apply_accumulated(state: TrainState, accum_steps: int) -> torch.Tensor:
     """One Adam update from the summed micro-gradients in `.grad` (mean =
-    sum / k) at the schedule's lr for this step; returns the float32 norm
-    of the applied gradient."""
+    sum / k, over the world's ranks sum / (k·W)) at the schedule's lr for
+    this step; returns the float32 norm of the applied gradient."""
     grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-    if accum_steps != 1:
-        torch._foreach_div_(grads, float(accum_steps))
+    n = accum_steps
+    if state.world is not None and state.world.distributed:
+        all_reduce_(grads, state.world)
+        n *= state.world.size
+    if n != 1:
+        torch._foreach_div_(grads, float(n))
     grad_norm = torch.linalg.vector_norm(torch.stack(
         torch._foreach_norm(grads)).float())
     for group in state.optimizer.param_groups:
@@ -88,6 +105,8 @@ def accum_train_step(state: TrainState,
     if n == 0:
         raise ValueError("accum_train_step needs at least one micro-batch")
     metrics = {k: v / n for k, v in msum.items()}
+    if state.world is not None:
+        metrics = mean_over_world(metrics, state.world)
     metrics["grad_norm"] = apply_accumulated(state, n)
     return metrics
 
@@ -108,13 +127,17 @@ def eval_loss_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    ) -> Dict[str, torch.Tensor]:
     """Loss-only validation forward with the running BN statistics (the
     reference's train_v6.py:355-400); the histogram is read, not
-    advanced."""
+    advanced. In a world of several ranks `batch` is this rank's rows
+    and the metrics are the global batch's (the hamming histogram's
+    sums all-reduced, the losses averaged over the ranks)."""
     outputs = forward_eval(state, batch["image"], bf16)
     gt_entire = batch.get("entire_mask") if predict_entire_mask else None
     with torch.no_grad():
         _, _, metrics = total_loss(
             outputs, batch["mask"], gt_entire, batch["code"],
-            state.histogram, loss_cfg, binary_loss_weight)
+            state.histogram, loss_cfg, binary_loss_weight, state.world)
+    if state.world is not None:
+        metrics = mean_over_world(metrics, state.world)
     return metrics
 
 

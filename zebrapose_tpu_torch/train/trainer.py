@@ -1,4 +1,5 @@
-"""Training orchestration: the reference's train_v2 loop on one device.
+"""Training orchestration: the reference's train_v2 loop, on one card or
+on a data-parallel world of them.
 
 Port of `zebrapose_tpu/train/trainer.py` (train_v2.py:226-344): every
 `log_freq` steps it logs the losses and the bit-error histogram, saves a
@@ -14,9 +15,16 @@ arrays copied at each step), prefetch (the same wrapped in
 `DevicePrefetchIterator`: copies one step ahead on a side stream) and
 device_cache (`DeviceDatasetCache`: the splits' pixels on the device,
 batches gathered there). `train_step_cost` counts one train step's
-FLOPs. Not ported yet (ROADMAP.md, A8): data parallelism across cards
-(torch DDP; `parallel/mesh.py` holds the one-process arithmetic). The
-fleet trainer (K objects in one program) is `train/fleet.py`.
+FLOPs. The fleet trainer (K objects in one program) is `train/fleet.py`.
+
+Data parallelism (`parallel/mesh.py`, one process a card under
+torchrun): `build_train_setup(world=)` scales lr × W and iterations ÷ W
+(`scale_for_world`), draws each rank's share of the global batch from
+iterators seeded with the rank (JAX's `seed=jax.process_index()`), seeds
+the augmentation from (draw, rank), and starts every rank from rank 0's
+state (`replicate`). In `fit` only rank 0 writes checkpoints and logs,
+and pose validation runs once, on rank 0, whose recall is broadcast, so
+the best score and the best checkpoint agree on every rank.
 """
 
 from __future__ import annotations
@@ -47,7 +55,12 @@ from zebrapose_tpu_torch.models.losses import CodeLossConfig
 from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
 from zebrapose_tpu_torch.ops.pnp import PnPConfig
 from zebrapose_tpu_torch.parallel.mesh import (
+    World,
+    broadcast_object,
+    make_mesh,
+    replicate,
     scale_for_world,
+    shard_batch,
     validate_batch_partition,
 )
 from zebrapose_tpu_torch.train.checkpoints import CheckpointManager
@@ -59,8 +72,7 @@ from zebrapose_tpu_torch.train.train_step import (
     grad_step,
     train_step,
 )
-from zebrapose_tpu_torch.utils.device import resolve_device
-from zebrapose_tpu_torch.utils.logging import MetricsLogger
+from zebrapose_tpu_torch.utils.logging import MetricsLogger, NullLogger
 from zebrapose_tpu_torch.utils.profiling import count_flops
 
 @dataclasses.dataclass
@@ -89,6 +101,9 @@ class TrainResources:
     # device_cache mode: the splits' pixels on the device; train_iter
     # then yields indices (CachedBatchIterator)
     device_cache: Optional[DeviceDatasetCache] = None
+    # the data-parallel world (one rank: one process); train_iter yields
+    # this rank's share of each global (micro-)batch
+    world: World = World()
 
 
 def _loss_cfg(cfg: ZebraConfig) -> CodeLossConfig:
@@ -104,12 +119,14 @@ def _to_device(raw: Dict[str, np.ndarray], dev) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(raw[k]).to(dev) for k in FEED_KEYS}
 
 
-def aug_generator(index: int, device) -> torch.Generator:
+def aug_generator(index: int, device, rank: int = 0) -> torch.Generator:
     """The augmentation generator of draw `index` (a step, or a
-    micro-batch under accumulation), seeded from the index: the
-    counterpart of JAX's fold_in(key, index), so a resumed run draws what
-    an uninterrupted one would."""
-    return torch.Generator(device=device).manual_seed(int(index))
+    micro-batch under accumulation) on rank `rank`, seeded from both:
+    the counterpart of JAX's fold_in(key, index), so a resumed run draws
+    what an uninterrupted one would, and ranks draw different noise for
+    their rows. Rank 0's seed is the index."""
+    return torch.Generator(device=device).manual_seed(
+        int(index) + (int(rank) << 40))
 
 
 def _make_batch_fn(res: TrainResources,
@@ -135,7 +152,7 @@ def _make_batch_fn(res: TrainResources,
         raw = next(res.train_iter)
         if clock is not None:
             clock["wait_s"] += time.perf_counter() - t0
-        gen = aug_generator(aug_index, res.device)
+        gen = aug_generator(aug_index, res.device, res.world.rank)
         if res.device_cache is not None:
             return gather_preprocess_batch(
                 res.device_cache.arrays, raw["idx"], raw["roi_param"],
@@ -164,17 +181,23 @@ def _validate_loss_only(res: TrainResources, state: TrainState,
                         loss_cfg: CodeLossConfig) -> Dict[str, float]:
     """Loss-only validation (train_v6.py:364-399): the mean losses over
     the val split, no pose decode; logged, never selecting a best
-    checkpoint. The ragged tail is padded by wrapping around."""
+    checkpoint. The ragged tail is padded by wrapping around. In a world
+    of W ranks each batch is padded to a multiple of W, every rank takes
+    its rows, and the losses are the global batch's (`eval_loss_step`
+    averages them over the ranks), as JAX's batch sharded over its
+    mesh."""
     cfg = res.cfg
     ds = res.val_dataset
     n = len(ds)
     if n == 0:
         return {}
-    bs = max(res.val_batch_size, 1)
+    w = res.world.size
+    bs = max(w, -(-max(res.val_batch_size, 1) // w) * w)
     sums: Dict[str, float] = {}
     n_batches = 0
     for start in range(0, n, bs):
-        raw = ds.collate([(start + j) % n for j in range(bs)])
+        raw = shard_batch(res.world, ds.collate(
+            [(start + j) % n for j in range(bs)]))
         batch = preprocess_batch(
             _to_device(raw, res.device),
             crop_img=cfg.BoundingBox_CropSize_image,
@@ -269,6 +292,11 @@ def fit(res: TrainResources, log_freq: int = 1000, validate: bool = True,
     wait_s (waiting for the next batch), step_s (issuing the steps; the
     device works behind them), log_s (logging and checkpoint copies,
     which wait for the device) and val_s.
+
+    In a world of several ranks every rank calls fit: the steps run on
+    all of them, rank 0 alone logs, checkpoints and validates by pose
+    (the others wait for its recall), and the loss-only validation runs
+    on all of them over their rows.
     """
     if val_mode not in ("pose", "loss"):
         raise ValueError(f"unknown val_mode: {val_mode}")
@@ -277,10 +305,13 @@ def fit(res: TrainResources, log_freq: int = 1000, validate: bool = True,
     loss_cfg = _loss_cfg(cfg)
     state = res.state
     dev = res.device
+    world = res.world
     clock = dict.fromkeys(("wait_s", "step_s", "log_s", "val_s"), 0.0)
 
+    pose_val = validate and val_mode == "pose" and \
+        res.val_dataset is not None
     eval_step = None
-    if validate and val_mode == "pose" and res.val_dataset is not None:
+    if pose_val and world.is_main:
         # built once; its forward runs the live model with the running
         # BN statistics. Inference reads only batch["image"].
         eval_step = make_eval_step(
@@ -324,15 +355,18 @@ def fit(res: TrainResources, log_freq: int = 1000, validate: bool = True,
                 clock["log_s"] += time.perf_counter() - t0
 
                 t0 = time.perf_counter()
-                if eval_step is not None:
-                    r = evaluate_object(
-                        res.val_dataset, eval_step, res.vertices,
-                        res.diameter, res.symmetric, res.obj_id, "val",
-                        res.obj_name, batch_size=res.val_batch_size,
-                        device=dev)
-                    prefix = "ADD-S" if res.symmetric else "ADD"
-                    recall = r.metrics[f"{prefix}_recall_0.1d"]
-                    res.logger.log(it + 1, r.metrics, prefix="val/")
+                if pose_val:
+                    recall = None
+                    if eval_step is not None:
+                        r = evaluate_object(
+                            res.val_dataset, eval_step, res.vertices,
+                            res.diameter, res.symmetric, res.obj_id, "val",
+                            res.obj_name, batch_size=res.val_batch_size,
+                            device=dev)
+                        prefix = "ADD-S" if res.symmetric else "ADD"
+                        recall = r.metrics[f"{prefix}_recall_0.1d"]
+                        res.logger.log(it + 1, r.metrics, prefix="val/")
+                    recall = broadcast_object(recall, world)
                     if recall > best:
                         best = recall
                         state.best_score = best
@@ -412,9 +446,12 @@ def build_train_setup(cfg: ZebraConfig, obj_name: str, output_dir: str,
                       cache_images: bool = False, accum_steps: int = 1,
                       qat: bool = False, device_cache: bool = False,
                       device_prefetch: bool = False,
-                      device=None) -> TrainResources:
+                      device=None, world: Optional[World] = None,
+                      write: Optional[bool] = None) -> TrainResources:
     """Assemble TrainResources from a BOP tree (train_v2.py:40-223) on
-    `device` (CUDA unless "cpu" is asked for).
+    `device` (CUDA unless "cpu" is asked for), for this rank of `world`
+    (default `parallel.mesh.make_mesh(device)`: the torchrun world when
+    there is one, else one process on `device`).
 
     pretrained_backbone: a torchvision resnet34 .pth, "auto" (search the
     known places and fail when absent) or None (from scratch; the model
@@ -436,7 +473,13 @@ def build_train_setup(cfg: ZebraConfig, obj_name: str, output_dir: str,
     ~2.46 MB a 480x640 sample) and each step gathers its batch there;
     device_prefetch: the streamed batches are copied one step ahead on a
     side stream (`DevicePrefetchIterator`). The batches' draws are the
-    same in every mode.
+    same in every mode. In a world of W ranks: lr × W and iterations ÷ W
+    (the reference's DDP recipe, train_v5.py:82-91), each rank's
+    iterator yields batch_size / W / accum_steps rows from its own
+    stream (seed = rank), the device cache holds the whole split on
+    each rank's card, only rank 0 writes checkpoints and logs (`write`,
+    default: whether this is rank 0), and every rank starts from rank
+    0's state.
     """
     from zebrapose_tpu_torch.codec.lut import load_correspondence_lut
     from zebrapose_tpu_torch.data import bop_io
@@ -446,11 +489,16 @@ def build_train_setup(cfg: ZebraConfig, obj_name: str, output_dir: str,
     )
     from zebrapose_tpu_torch.models.convert import load_torchvision_resnet34
 
-    dev = resolve_device(device)
+    if world is None:
+        world = make_mesh(device)
+    if write is None:
+        write = world.is_main
+    dev = world.device
     _warn_ignored_config(cfg)
     pretrained_backbone = _resolve_pretrained(pretrained_backbone)
     # fail fast on an unsplittable batch before any dataset/model work
-    local_batch = validate_batch_partition(cfg.batch_size, accum_steps, 1)
+    local_batch = validate_batch_partition(cfg.batch_size, accum_steps,
+                                           world.size, world.size)
     obj_id = lookup_obj_id(cfg.dataset_name, obj_name)
 
     def train_split(folder):
@@ -504,23 +552,27 @@ def build_train_setup(cfg: ZebraConfig, obj_name: str, output_dir: str,
             pretrained_backbone, map_location="cpu", weights_only=True))
     model = model.to(dev).to(memory_format=torch.channels_last).train()
 
-    lr, iters = scale_for_world(cfg.learning_rate, cfg.total_iteration, 1)
+    lr, iters = scale_for_world(cfg.learning_rate, cfg.total_iteration,
+                                world.size)
     state = create_train_state(model, lr, n_bits=cfg.number_of_itration,
-                               gamma=gamma, log_freq=log_freq)
-    ckpt = CheckpointManager(os.path.join(output_dir, "checkpoints"))
+                               gamma=gamma, log_freq=log_freq, world=world)
+    ckpt = CheckpointManager(os.path.join(output_dir, "checkpoints"),
+                             write=write)
     if cfg.load_checkpoint:
         state = ckpt.restore(state)
-    logger = MetricsLogger(os.path.join(output_dir, "logs"))
+    replicate(world, state)
+    logger = MetricsLogger(os.path.join(output_dir, "logs")) if write \
+        else NullLogger()
     cache = None
     if device_cache:
         cache = DeviceDatasetCache([ds1, ds2], dev)
         train_iter = CachedBatchIterator(
             cache, batch_size=local_batch,
-            second_dataset_ratio=cfg.second_dataset_ratio, seed=0)
+            second_dataset_ratio=cfg.second_dataset_ratio, seed=world.rank)
     else:
         train_iter = MixedBatchIterator(
             ds1, ds2, batch_size=local_batch,
-            second_dataset_ratio=cfg.second_dataset_ratio, seed=0,
+            second_dataset_ratio=cfg.second_dataset_ratio, seed=world.rank,
             num_workers=cfg.num_workers)
         if device_prefetch:
             train_iter = DevicePrefetchIterator(train_iter, dev)
@@ -532,4 +584,4 @@ def build_train_setup(cfg: ZebraConfig, obj_name: str, output_dir: str,
         symmetric=is_symmetric(cfg.dataset_name, obj_name), obj_id=obj_id,
         obj_name=obj_name, ckpt=ckpt, logger=logger,
         total_iterations=iters, device=dev, accum_steps=accum_steps,
-        bf16=bf16, device_cache=cache)
+        bf16=bf16, device_cache=cache, world=world)

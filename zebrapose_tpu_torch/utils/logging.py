@@ -62,6 +62,20 @@ class MetricsLogger:
             self._tb.close()
 
 
+class NullLogger:
+    """MetricsLogger's interface writing nothing: the logger of every
+    rank but rank 0 in a data-parallel world."""
+
+    def log(self, step, scalars, prefix: str = "") -> None:
+        pass
+
+    def log_series(self, tag, steps, values) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def prepare_eval_dir(output_dir: str, config_items: Dict,
                      timestamp: bool = True) -> str:
     """Timestamped eval run dir + full config dump, the reference's
