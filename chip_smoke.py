@@ -1158,7 +1158,6 @@ def runner_phase(dev, card, tmp, n_frames=TREE_FRAMES):
         check(metrics["ADD_recall_0.1d"] >= want,
               f"{name}: ADD recall@0.1d below the JAX package's less "
               f"{RECALL_SLACK}")
-        batches = -(-n // bsz)
         other = wall - sum(timing[k] for k in (
             "prepare_s", "load_model_s", "inference_s", "pose_errors_s",
             "write_s"))
@@ -1174,13 +1173,8 @@ def runner_phase(dev, card, tmp, n_frames=TREE_FRAMES):
             f"{share(timing['fetch_s'])}; the producer collated for "
             f"{timing['collate_s']:.2f} s on 4 decode threads); pose errors "
             f"{share(timing['pose_errors_s'])}; artifacts "
-            f"{share(timing['write_s'])}; the rest {share(other)}"
-            + ("" if "device_s" not in timing else
-               f". The {batches} steps spanned "
-               f"{share(timing['device_s'])} of the device stream "
-               f"({1e3 * timing['device_s'] / batches:.2f} ms a batch; "
-               f"CUDA events, so the span holds the host's issuing too)")
-            + f" on {card}")
+            f"{share(timing['write_s'])}; the rest {share(other)} on "
+            f"{card}")
         rec["runs"][name] = {"metrics": metrics, "wall_s": wall,
                              "frames_per_s": n / wall, "launches": launches,
                              "timing": timing}
@@ -1565,7 +1559,6 @@ def train_phase(dev, card, tmp):
         log(f"[train] timed_steps {name} (frames from memory), "
             f"b{TRAIN_BATCH}, {n} steps after {warm}: "
             f"{t['host_ms']:.2f} ms a step host clock, "
-            f"{t.get('event_ms', float('nan')):.2f} ms CUDA events, "
             f"{TRAIN_BATCH / t['host_ms'] * 1e3:.1f} samples/s; waiting for "
             f"a batch {100 * wait:.1f}% of the time; device busy over 5 "
             f"more steps under torch.profiler {busy}; peak device memory "
@@ -2775,11 +2768,7 @@ def fleet_train(dev, card, tmp, cfg_train):
         + " ".join(f"{x:.2f}" for x in ms["fleet"]) + " ms a step, v2 "
         + " ".join(f"{x:.2f}" for x in ms["v2"]) + f" ms (host clock): the "
         f"fleet step is {ratio:.2f}x one v2 step, {ratio / 2:.2f}x two; "
-        f"CUDA events fleet " + " ".join(
-            f"{t.get('event_ms', float('nan')):.2f}" for t in runs["fleet"])
-        + f", v2 " + " ".join(f"{t.get('event_ms', float('nan')):.2f}"
-                              for t in runs["v2"])
-        + f" ms; busy under torch.profiler: fleet {share(busy['fleet'])}, "
+        f"busy under torch.profiler: fleet {share(busy['fleet'])}, "
         f"v2 {share(busy['v2'])}; fleet peak device memory "
         f"{peak / 2 ** 30:.2f} GiB; on {card}")
     rec.update(step_ms=step_ms, timed_ms=ms, ratio=float(ratio),
@@ -4771,7 +4760,6 @@ def cli_input_modes(dev, card, tmp):
                 f"kernels a step)")
         log(f"[cli] `--input_mode {mode}`: {MODE_STEPS} steps after "
             f"{MODE_WARM}: {t['host_ms']:.2f} ms a step host clock, "
-            f"{t.get('event_ms', float('nan')):.2f} ms CUDA events, "
             f"{cfg.batch_size / t['host_ms'] * 1e3:.1f} samples/s; waiting "
             f"for a batch {100 * t['wait_share']:.2f}% of the time; device "
             f"busy over 5 more steps under torch.profiler {busy}; peak "

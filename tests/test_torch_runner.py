@@ -404,7 +404,17 @@ def test_cli_test_runs_end_to_end_on_cpu(bop_tree, tmp_path):
     assert timing["inference_s"] >= (timing["wait_s"] + timing["step_s"]
                                      + timing["fetch_s"])
     assert "device : cpu" in (run_dir / "config.txt").read_text()
-    assert (prof / "trace.json").exists()
+    # the Chrome trace holds the serving step's ranges, and the pose
+    # decode's inside them: 3 frames at b2 are 2 steps
+    with open(prof / "trace.json") as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    assert names.count("zebrapose.serve.step") == 2
+    for leaf in ("serve.preprocess", "serve.forward", "serve.binarize",
+                 "decode.correspondences", "decode.ransac_prepare",
+                 "decode.hypotheses", "decode.ransac_finish"):
+        assert names.count("zebrapose." + leaf) == 2, leaf
+    assert names.count("zebrapose.serve.upload") == 4
+    assert "zebrapose.run.step_s" in names
     merged = tmp_path / "all.csv"
     assert cli.main(["merge-csv", str(run_dir / "pose_result_bop" /
                                       "lmo_ape.csv"),

@@ -294,6 +294,14 @@ def test_epnp_custom_op_checks_and_is_one_graph_node(single):
         torch.ops.zebrapose.epnp_minimal_hypotheses.default) == 1
 
 
+def test_exported_program_holds_no_profiler_op(single):
+    """The step's spans stay out of the export: no profiler range is
+    traced into the program."""
+    targets = [str(n.target) for n in single["prog"].program.graph.nodes
+               if n.op == "call_function"]
+    assert targets and not [t for t in targets if "profiler" in t]
+
+
 def test_poly_batch_export_serves_any_batch(single):
     """batch=None exports a symbolic batch dimension: one blob answers
     any batch size, exactly as the live program."""

@@ -54,6 +54,7 @@ from zebrapose_tpu_torch.ops.roi import (
     square_bbox,
     warp_affine_params,
 )
+from zebrapose_tpu_torch.utils.profiling import span
 
 _ROI = {"crop_square_resize": extract_roi_square,
         "crop_resize": extract_roi_clipped,
@@ -689,13 +690,18 @@ def gather_preprocess_batch(cache_arrays: Dict[str, torch.Tensor],
     `preprocess_batch(is_train=True)` with `generator` (or `draws`).
     `idx`, `roi_param` and `valid` are moved to the arrays' device."""
     dev = cache_arrays["rgb"].device
-    idx = torch.as_tensor(idx).to(dev, torch.int64)
-    raw = {k: torch.index_select(cache_arrays[k], 0, idx)
-           for k in DeviceDatasetCache.PIXEL_KEYS}
-    raw["roi_param"] = torch.as_tensor(roi_param).to(dev)
-    raw["valid"] = torch.as_tensor(valid).to(dev)
-    return preprocess_batch(
-        raw, crop_img=crop_img, crop_gt=crop_gt, base=base, n_bits=n_bits,
-        resize_method=resize_method, is_train=True,
-        use_pepper_salt=use_pepper_salt, use_motion_blur=use_motion_blur,
-        generator=generator, draws=draws)
+    with span("zebrapose.train.upload"):
+        idx = torch.as_tensor(idx).to(dev, torch.int64)
+        roi_param = torch.as_tensor(roi_param).to(dev)
+        valid = torch.as_tensor(valid).to(dev)
+    with span("zebrapose.train.preprocess"):
+        raw = {k: torch.index_select(cache_arrays[k], 0, idx)
+               for k in DeviceDatasetCache.PIXEL_KEYS}
+        raw["roi_param"] = roi_param
+        raw["valid"] = valid
+        return preprocess_batch(
+            raw, crop_img=crop_img, crop_gt=crop_gt, base=base,
+            n_bits=n_bits, resize_method=resize_method, is_train=True,
+            use_pepper_salt=use_pepper_salt,
+            use_motion_blur=use_motion_blur, generator=generator,
+            draws=draws)

@@ -50,6 +50,7 @@ from zebrapose_tpu_torch.ops.pnp import (
     decode_to_pose_batch,
 )
 from zebrapose_tpu_torch.utils.device import resolve_device
+from zebrapose_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -110,39 +111,48 @@ def make_eval_step(forward_fn: Callable[[Dict[str, torch.Tensor]],
              generator: Optional[torch.Generator] = None,
              draws: Optional[RansacDraws] = None,
              lut_tensors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-        points, valid = lut_tensors or (lut_points, lut_valid)
-        raw = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
-        batch = preprocess_batch(
-            raw, crop_img=crop_img, crop_gt=crop_gt, base=base,
-            n_bits=n_bits, resize_method=resize_method,
-            include_gt=preprocess_gt or mask_from_dataset)
-        out = {k: v.float() for k, v in forward_fn(batch).items()}
-        if mask_from_dataset:
-            # the detector's mask replaces the network's mask head
-            masks = (batch["mask"] > 0.5).to(torch.float32)
-        else:
-            masks = mask_from_logits(out["mask"][..., 0])
-        codes = code_from_logits(out["code"], loss_type, base=base)
-        if ignore_bits:
-            codes = codes[..., :n_bits - ignore_bits]
-        # `valid` zeroes dummy / detection-less samples
-        poses = decode_to_pose_batch(
-            masks * raw["valid"].to(torch.float32)[:, None, None], codes,
-            points, valid, torch.as_tensor(final_bbox, device=dev),
-            torch.as_tensor(K, device=dev, dtype=torch.float32),
-            bbox_size=crop_gt, base=base,
-            cfg=pnp_cfg, generator=generator, draws=draws, device=dev)
-        extra = ()
-        if return_masks:
-            if mask_from_dataset:
-                entire = (batch["entire_mask"] > 0.5).to(torch.float32)
-            else:
-                entire = mask_from_logits(
-                    out.get("entire_mask", out["mask"])[..., 0])
-            extra = (masks, entire)
-        if return_codes:
-            extra = extra + (codes,)
-        return tuple(poses) + extra
+        with span("zebrapose.serve.step"):
+            points, valid = lut_tensors or (lut_points, lut_valid)
+            with span("zebrapose.serve.upload"):
+                raw = {k: torch.as_tensor(v, device=dev)
+                       for k, v in raw.items()}
+            with span("zebrapose.serve.preprocess"):
+                batch = preprocess_batch(
+                    raw, crop_img=crop_img, crop_gt=crop_gt, base=base,
+                    n_bits=n_bits, resize_method=resize_method,
+                    include_gt=preprocess_gt or mask_from_dataset)
+            with span("zebrapose.serve.forward"):
+                out = {k: v.float() for k, v in forward_fn(batch).items()}
+            with span("zebrapose.serve.binarize"):
+                if mask_from_dataset:
+                    # the detector's mask replaces the network's mask head
+                    masks = (batch["mask"] > 0.5).to(torch.float32)
+                else:
+                    masks = mask_from_logits(out["mask"][..., 0])
+                codes = code_from_logits(out["code"], loss_type, base=base)
+                if ignore_bits:
+                    codes = codes[..., :n_bits - ignore_bits]
+                # `valid` zeroes dummy / detection-less samples
+                kept = (masks
+                        * raw["valid"].to(torch.float32)[:, None, None])
+            with span("zebrapose.serve.upload"):
+                bboxes = torch.as_tensor(final_bbox, device=dev)
+                Ks = torch.as_tensor(K, device=dev, dtype=torch.float32)
+            poses = decode_to_pose_batch(
+                kept, codes, points, valid, bboxes, Ks, bbox_size=crop_gt,
+                base=base, cfg=pnp_cfg, generator=generator, draws=draws,
+                device=dev)
+            extra = ()
+            if return_masks:
+                if mask_from_dataset:
+                    entire = (batch["entire_mask"] > 0.5).to(torch.float32)
+                else:
+                    entire = mask_from_logits(
+                        out.get("entire_mask", out["mask"])[..., 0])
+                extra = (masks, entire)
+            if return_codes:
+                extra = extra + (codes,)
+            return tuple(poses) + extra
 
     step.lut = (lut_points, lut_valid)
     return step
@@ -185,9 +195,8 @@ def prefetched(collate: Callable, starts: Sequence[int], num_workers: int,
             for start in starts:
                 if stop.is_set():
                     return
-                t0 = time.perf_counter()
-                item = collate(start, pool)
-                clock["collate_s"] += time.perf_counter() - t0
+                with span("zebrapose.run.collate_s", clock):
+                    item = collate(start, pool)
                 if not _put((start, item)):
                     return
             _put(None)
@@ -196,9 +205,8 @@ def prefetched(collate: Callable, starts: Sequence[int], num_workers: int,
 
     def batches():
         while True:
-            t0 = time.perf_counter()
-            item = q.get()
-            clock["wait_s"] += time.perf_counter() - t0
+            with span("zebrapose.run.wait_s", clock):
+                item = q.get()
             if item is None:
                 return
             if isinstance(item, BaseException):
@@ -248,14 +256,12 @@ def run_inference(dataset: CropDatasetHost, eval_step,
     `timing`, when given, is filled with seconds of this run:
     inference_s (the whole call), collate_s (the producer's collates,
     which overlap the rest), wait_s (the device loop waiting for a
-    collated batch), step_s (the host issuing eval_step), fetch_s
-    (copying poses back, waiting for the device), and on CUDA device_s
-    (each step's span on the device stream, by CUDA events).
+    collated batch), step_s (the host issuing eval_step) and fetch_s
+    (copying poses back, waiting for the device).
     """
     dev = resolve_device(device)
     t_run = time.perf_counter()
     clock = dict.fromkeys(("collate_s", "wait_s", "step_s", "fetch_s"), 0.0)
-    spans = []
     n = len(dataset)
     Rs = np.zeros((n, 3, 3), np.float32)
     ts = np.zeros((n, 3), np.float32)
@@ -269,13 +275,12 @@ def run_inference(dataset: CropDatasetHost, eval_step,
                                  batch_size)
 
     def consume(start, m, out):
-        t0 = time.perf_counter()
-        Rs[start:start + m] = out[0][:m].cpu().numpy()
-        ts[start:start + m] = out[1][:m].cpu().numpy()
-        ok[start:start + m] = out[2][:m].cpu().numpy()
-        for got, x in zip(extra, out[4:]):
-            got.extend(x[:m].cpu().numpy())
-        clock["fetch_s"] += time.perf_counter() - t0
+        with span("zebrapose.run.fetch_s", clock):
+            Rs[start:start + m] = out[0][:m].cpu().numpy()
+            ts[start:start + m] = out[1][:m].cpu().numpy()
+            ok[start:start + m] = out[2][:m].cpu().numpy()
+            for got, x in zip(extra, out[4:]):
+                got.extend(x[:m].cpu().numpy())
 
     pending = None
     with prefetched(collate, range(0, n, batch_size), num_workers,
@@ -284,16 +289,9 @@ def run_inference(dataset: CropDatasetHost, eval_step,
             feed = {k: raw[k] for k in FEED_KEYS}
             kw = ({"draws": draws_for(start)} if draws_for is not None
                   else {"generator": batch_generator(seed, start, dev)})
-            t0 = time.perf_counter()
-            if dev.type == "cuda":
-                spans.append((torch.cuda.Event(enable_timing=True),
-                              torch.cuda.Event(enable_timing=True)))
-                spans[-1][0].record()
-            out = eval_step(feed, raw["final_bbox"].astype(np.int32),
-                            raw["K"], **kw)
-            if spans:
-                spans[-1][1].record()
-            clock["step_s"] += time.perf_counter() - t0
+            with span("zebrapose.run.step_s", clock):
+                out = eval_step(feed, raw["final_bbox"].astype(np.int32),
+                                raw["K"], **kw)
             if pending is not None:
                 consume(*pending)
             pending = (start, m, out)
@@ -301,9 +299,6 @@ def run_inference(dataset: CropDatasetHost, eval_step,
             consume(*pending)
     if timing is not None:
         timing.update(clock, inference_s=time.perf_counter() - t_run)
-        if spans:
-            timing["device_s"] = sum(a.elapsed_time(b)
-                                     for a, b in spans) / 1e3
     return (Rs, ts, ok) + tuple(np.array(x) for x in extra)
 
 

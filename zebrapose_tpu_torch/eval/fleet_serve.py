@@ -67,6 +67,7 @@ from zebrapose_tpu_torch.parallel.mesh import (
     broadcast_object,
 )
 from zebrapose_tpu_torch.utils.device import resolve_device
+from zebrapose_tpu_torch.utils.profiling import span
 
 def stack_luts(luts: Sequence[CorrespondenceLUT]
                ) -> Tuple[np.ndarray, np.ndarray]:
@@ -229,13 +230,12 @@ def fleet_infer(datasets, fleet_step, variables, batch_size: int,
     object), or from `draws_for(start)` (one RansacDraws an object) when
     given.
     `timing` gets run_inference's keys (inference_s, collate_s, wait_s,
-    step_s, fetch_s, and device_s on CUDA)."""
+    step_s and fetch_s)."""
     if collect_codes and not collect_masks:
         raise ValueError("collect_codes requires collect_masks")
     dev = resolve_device(device)
     t_run = time.perf_counter()
     clock = dict.fromkeys(("collate_s", "wait_s", "step_s", "fetch_s"), 0.0)
-    spans = []
     k_models = len(datasets)
     lens = [len(d) for d in datasets]
     if any(n == 0 for n in lens):
@@ -264,21 +264,21 @@ def fleet_infer(datasets, fleet_step, variables, batch_size: int,
                 for k in FEED_KEYS + ("final_bbox", "K")}
 
     def consume(start, out):
-        t0 = time.perf_counter()
-        host = [x.cpu().numpy() for x in out[:3]]
-        more = [x.cpu().numpy() for x in out[4:4 + n_extra]]
-        if len(more) < n_extra:
-            raise ValueError("collect_masks / collect_codes need a fleet "
-                             "step built with return_masks / return_codes")
-        for i, n in enumerate(lens):
-            m = max(0, min(batch_size, n - start))
-            if m:
-                Rs[i][start:start + m] = host[0][i, :m]
-                ts[i][start:start + m] = host[1][i, :m]
-                ok[i][start:start + m] = host[2][i, :m]
-                for got, x in zip(extra, more):
-                    got[i].extend(x[i, :m])
-        clock["fetch_s"] += time.perf_counter() - t0
+        with span("zebrapose.run.fetch_s", clock):
+            host = [x.cpu().numpy() for x in out[:3]]
+            more = [x.cpu().numpy() for x in out[4:4 + n_extra]]
+            if len(more) < n_extra:
+                raise ValueError("collect_masks / collect_codes need a "
+                                 "fleet step built with return_masks / "
+                                 "return_codes")
+            for i, n in enumerate(lens):
+                m = max(0, min(batch_size, n - start))
+                if m:
+                    Rs[i][start:start + m] = host[0][i, :m]
+                    ts[i][start:start + m] = host[1][i, :m]
+                    ok[i][start:start + m] = host[2][i, :m]
+                    for got, x in zip(extra, more):
+                        got[i].extend(x[i, :m])
 
     pending = None
     with prefetched(collate, range(0, n_max, batch_size), num_workers,
@@ -288,17 +288,10 @@ def fleet_infer(datasets, fleet_step, variables, batch_size: int,
                   else {"generators": [
                       fleet_generator(seed, start, first + k, dev)
                       for k in range(k_models)]})
-            t0 = time.perf_counter()
-            if dev.type == "cuda":
-                spans.append((torch.cuda.Event(enable_timing=True),
-                              torch.cuda.Event(enable_timing=True)))
-                spans[-1][0].record()
-            out = fleet_step({k: cat[k] for k in FEED_KEYS},
-                             cat["final_bbox"].astype(np.int32), cat["K"],
-                             variables, **kw)
-            if spans:
-                spans[-1][1].record()
-            clock["step_s"] += time.perf_counter() - t0
+            with span("zebrapose.run.step_s", clock):
+                out = fleet_step({k: cat[k] for k in FEED_KEYS},
+                                 cat["final_bbox"].astype(np.int32),
+                                 cat["K"], variables, **kw)
             if pending is not None:
                 consume(*pending)
             pending = (start, out)
@@ -306,9 +299,6 @@ def fleet_infer(datasets, fleet_step, variables, batch_size: int,
             consume(*pending)
     if timing is not None:
         timing.update(clock, inference_s=time.perf_counter() - t_run)
-        if spans:
-            timing["device_s"] = sum(a.elapsed_time(b)
-                                     for a, b in spans) / 1e3
     return (Rs, ts, ok) + tuple([np.array(x) for x in got]
                                 for got in extra)
 

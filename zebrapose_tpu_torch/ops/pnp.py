@@ -56,6 +56,7 @@ from zebrapose_tpu_torch.ops.fast_linalg import (
     smallest_subspace,
     solve_psd_small,
 )
+from zebrapose_tpu_torch.utils.profiling import span
 
 @dataclasses.dataclass(frozen=True)
 class PnPConfig:
@@ -690,24 +691,28 @@ def _ransac(sub3d, sub2d, sub_w, samp3d, samp2d, n_fg, Ks,
     scoring / refit / polish, and the escalation stage. JAX gates stage
     2 with one lax.cond over the batch; here the same batch-level gate
     costs one host sync (needs.any().item())."""
-    Rs, ts = _solve_hypotheses(samp3d, samp2d, Ks, cfg)
-    res = _ransac_finish(sub3d, sub2d, sub_w, Rs, ts, Ks, n_fg, cfg)
-    if cfg.escalate_hypotheses <= 0:
-        return res
-    R1, t1, ok1, n_in1 = res
-    needs = _escalation_needed(ok1, n_in1, n_fg, cfg)
-    if not bool(needs.any().item()):
-        return res
-    s3, s2 = _draw_minimal_samples(sub3d, sub2d, sub_w, cfg,
-                                   cfg.escalate_hypotheses, u2, generator)
-    Rs2, ts2 = _solve_hypotheses(s3, s2, Ks, cfg)
-    R2, t2, ok2, n_in2 = _ransac_finish(sub3d, sub2d, sub_w, Rs2, ts2, Ks,
-                                        n_fg, cfg)
-    better = needs & (n_in2 > n_in1)
-    return (torch.where(better[:, None, None], R2, R1),
-            torch.where(better[:, None], t2, t1),
-            torch.where(better, ok2, ok1),
-            torch.where(better, n_in2, n_in1))
+    with span("zebrapose.decode.hypotheses"):
+        Rs, ts = _solve_hypotheses(samp3d, samp2d, Ks, cfg)
+    with span("zebrapose.decode.ransac_finish"):
+        res = _ransac_finish(sub3d, sub2d, sub_w, Rs, ts, Ks, n_fg, cfg)
+        if cfg.escalate_hypotheses <= 0:
+            return res
+        R1, t1, ok1, n_in1 = res
+        needs = _escalation_needed(ok1, n_in1, n_fg, cfg)
+        if not bool(needs.any().item()):
+            return res
+    with span("zebrapose.decode.escalation"):
+        s3, s2 = _draw_minimal_samples(sub3d, sub2d, sub_w, cfg,
+                                       cfg.escalate_hypotheses, u2,
+                                       generator)
+        Rs2, ts2 = _solve_hypotheses(s3, s2, Ks, cfg)
+        R2, t2, ok2, n_in2 = _ransac_finish(sub3d, sub2d, sub_w, Rs2, ts2,
+                                            Ks, n_fg, cfg)
+        better = needs & (n_in2 > n_in1)
+        return (torch.where(better[:, None, None], R2, R1),
+                torch.where(better[:, None], t2, t1),
+                torch.where(better, ok2, ok1),
+                torch.where(better, n_in2, n_in1))
 
 
 def _one(draws: Optional[RansacDraws]) -> RansacDraws:
@@ -734,10 +739,11 @@ def ransac_pnp(pts3d, pts2d, w, K, cfg: PnPConfig = PnPConfig(),
     dev = resolve_device(device, pts3d, pts2d, w)
     f32 = dict(device=dev, dtype=torch.float32)
     d = _one(draws)
-    prep = _ransac_prepare(torch.as_tensor(pts3d, **f32)[None],
-                           torch.as_tensor(pts2d, **f32)[None],
-                           torch.as_tensor(w, **f32)[None], cfg, d.prio,
-                           d.u, generator)
+    with span("zebrapose.decode.ransac_prepare"):
+        prep = _ransac_prepare(torch.as_tensor(pts3d, **f32)[None],
+                               torch.as_tensor(pts2d, **f32)[None],
+                               torch.as_tensor(w, **f32)[None], cfg, d.prio,
+                               d.u, generator)
     res = _ransac(*prep, torch.as_tensor(K, **f32)[None], cfg, d.u2,
                   generator)
     return tuple(x[0] for x in res)
@@ -789,8 +795,10 @@ def decode_to_pose_batch(masks, codes, lut_points, lut_valid, bboxes, Ks,
     bboxes = torch.as_tensor(bboxes, device=dev)
     Ks = torch.as_tensor(Ks, **f32)
 
-    pts3d, orig, fg = _correspondences(masks, codes, lut_points, lut_valid,
-                                       bboxes, bbox_size, base)
-    prep = _ransac_prepare(pts3d, orig, fg, cfg, draws.prio, draws.u,
-                           generator)
+    with span("zebrapose.decode.correspondences"):
+        pts3d, orig, fg = _correspondences(masks, codes, lut_points,
+                                           lut_valid, bboxes, bbox_size, base)
+    with span("zebrapose.decode.ransac_prepare"):
+        prep = _ransac_prepare(pts3d, orig, fg, cfg, draws.prio, draws.u,
+                               generator)
     return _ransac(*prep, Ks, cfg, draws.u2, generator)

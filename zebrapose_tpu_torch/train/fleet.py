@@ -53,6 +53,7 @@ from zebrapose_tpu_torch.parallel.mesh import (
     make_mesh,
 )
 from zebrapose_tpu_torch.train.state import TrainState
+from zebrapose_tpu_torch.utils.profiling import span
 
 def stack_tensors(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """[K, ...] stack of equal-shape tensors. A stack of 4-D convolution
@@ -396,14 +397,12 @@ def fleet_batch(members, it: int, device,
     from zebrapose_tpu_torch.train.trainer import aug_generator
 
     cfg = members[0].cfg
-    t0 = time.perf_counter()
     drawn: Dict[int, Dict[str, np.ndarray]] = {}
-    for m in members:
-        if id(m) not in drawn:
-            drawn[id(m)] = next(m.train_iter)
+    with span("zebrapose.run.wait_s", clock):
+        for m in members:
+            if id(m) not in drawn:
+                drawn[id(m)] = next(m.train_iter)
     raws = [drawn[id(m)] for m in members]
-    if clock is not None:
-        clock["wait_s"] += time.perf_counter() - t0
     feed = {k: torch.as_tensor(np.concatenate([r[k] for r in raws]))
             .to(device) for k in FEED_KEYS}
     return preprocess_batch(
@@ -432,33 +431,25 @@ def timed_fleet_steps(fleet: FleetResources, n_steps: int = 500,
     """`trainer.timed_steps` for the fleet: `warm` unmeasured fleet
     steps, then `n_steps` timed ones; ms a fleet step on the host clock,
     from a drained device to the last step's losses read back. `timing`
-    gets host_ms, wait_s and on CUDA event_ms. No checkpoints; the
-    iterators stay open; the state advances."""
+    gets host_ms and wait_s. No checkpoints; the iterators stay open;
+    the state advances."""
     state, members = fleet.state, fleet.rows
     dev = state.histogram.device
     kw = _step_kw(members)
-    clock = {"wait_s": 0.0}
+    clock = {"wait_s": 0.0, "host_s": 0.0}
     for it in range(warm):
         fleet_train_step(state, fleet_batch(members, it, dev, clock), **kw)
     clock["wait_s"] = 0.0
-    events = None
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-        events = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        events[0].record()
-    t0 = time.perf_counter()
-    for it in range(warm, warm + n_steps):
-        metrics = fleet_train_step(
-            state, fleet_batch(members, it, dev, clock), **kw)
-    if events is not None:
-        events[1].record()
-    metrics["loss_total"].cpu()
-    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    with span("zebrapose.run.host_s", clock):
+        for it in range(warm, warm + n_steps):
+            metrics = fleet_train_step(
+                state, fleet_batch(members, it, dev, clock), **kw)
+        metrics["loss_total"].cpu()
+    ms = clock["host_s"] / n_steps * 1e3
     if timing is not None:
         timing.update(host_ms=ms, wait_s=clock["wait_s"])
-        if events is not None:
-            timing["event_ms"] = events[0].elapsed_time(events[1]) / n_steps
     return ms
 
 
@@ -493,44 +484,41 @@ def fit_fleet(fleet: FleetResources, log_freq: int = 1000,
     kw = _step_kw(rows)
     try:
         for it in range(start_step, end_step):
-            t0 = time.perf_counter()
             waited = clock["wait_s"]
-            metrics = fleet_train_step(
-                state, fleet_batch(rows, it, dev, clock), **kw)
+            with span("zebrapose.run.step_s", clock):
+                metrics = fleet_train_step(
+                    state, fleet_batch(rows, it, dev, clock), **kw)
+            clock["step_s"] -= clock["wait_s"] - waited
             step_losses.append(metrics["loss_total"])
-            clock["step_s"] += time.perf_counter() - t0 - (
-                clock["wait_s"] - waited)
 
             if (it + 1) % log_freq == 0 or it + 1 == end_step:
-                t0 = time.perf_counter()
-                vals = {k: v.cpu().numpy() for k, v in metrics.items()}
-                hist = state.histogram.cpu().numpy()
-                losses = torch.stack(step_losses).cpu().numpy()
-                steps = range(it + 2 - len(step_losses), it + 2)
-                step_losses = []
-                for i, m in enumerate(members):
-                    scalars = {k: float(v[i]) for k, v in vals.items()}
-                    scalars.update({f"bit_err_{j}": float(h)
-                                    for j, h in enumerate(hist[i])})
-                    m.logger.log(it + 1, scalars, prefix="train/")
-                    m.logger.log_series("train/step_loss_total", steps,
-                                        losses[:, i].tolist())
-                    m.ckpt.save(index_state(state, i))
-                clock["log_s"] += time.perf_counter() - t0
-
-                t0 = time.perf_counter()
-                if fleet_eval is not None:
-                    val = _fleet_validate(rows, state, fleet_eval,
-                                          fleet.first)
+                with span("zebrapose.run.log_s", clock):
+                    vals = {k: v.cpu().numpy() for k, v in metrics.items()}
+                    hist = state.histogram.cpu().numpy()
+                    losses = torch.stack(step_losses).cpu().numpy()
+                    steps = range(it + 2 - len(step_losses), it + 2)
+                    step_losses = []
                     for i, m in enumerate(members):
-                        prefix = "ADD-S" if m.symmetric else "ADD"
-                        recall = val[i][f"{prefix}_recall_0.1d"]
-                        m.logger.log(it + 1, val[i], prefix="val/")
-                        if recall > best[i]:
-                            best[i] = recall
-                            state.best_score[i] = recall
-                            m.ckpt.save_best(index_state(state, i), recall)
-                clock["val_s"] += time.perf_counter() - t0
+                        scalars = {k: float(v[i]) for k, v in vals.items()}
+                        scalars.update({f"bit_err_{j}": float(h)
+                                        for j, h in enumerate(hist[i])})
+                        m.logger.log(it + 1, scalars, prefix="train/")
+                        m.logger.log_series("train/step_loss_total", steps,
+                                            losses[:, i].tolist())
+                        m.ckpt.save(index_state(state, i))
+
+                with span("zebrapose.run.val_s", clock):
+                    if fleet_eval is not None:
+                        val = _fleet_validate(rows, state, fleet_eval,
+                                              fleet.first)
+                        for i, m in enumerate(members):
+                            prefix = "ADD-S" if m.symmetric else "ADD"
+                            recall = val[i][f"{prefix}_recall_0.1d"]
+                            m.logger.log(it + 1, val[i], prefix="val/")
+                            if recall > best[i]:
+                                best[i] = recall
+                                state.best_score[i] = recall
+                                m.ckpt.save_best(index_state(state, i), recall)
     finally:
         for m in members + ([fleet.ghost_source] if fleet.ghost_source
                             else []):

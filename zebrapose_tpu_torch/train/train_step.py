@@ -38,6 +38,7 @@ import torch
 from zebrapose_tpu_torch.models.losses import CodeLossConfig, total_loss
 from zebrapose_tpu_torch.parallel.mesh import all_reduce_, mean_over_world
 from zebrapose_tpu_torch.train.state import TrainState
+from zebrapose_tpu_torch.utils.profiling import span
 
 
 def _forward(model, images, bf16: bool):
@@ -56,12 +57,15 @@ def grad_step(state: TrainState, batch: Dict[str, torch.Tensor],
     [N,H,W,3] normalized, "mask" [N,h,w], "entire_mask" [N,h,w], "code"
     [N,h,w,bits]}."""
     state.model.train()
-    outputs = _forward(state.model, batch["image"], bf16)
+    with span("zebrapose.train.forward"):
+        outputs = _forward(state.model, batch["image"], bf16)
     gt_entire = batch.get("entire_mask") if predict_entire_mask else None
-    loss, new_hist, metrics = total_loss(
-        outputs, batch["mask"], gt_entire, batch["code"], state.histogram,
-        loss_cfg, binary_loss_weight, state.world)
-    loss.backward()
+    with span("zebrapose.train.loss"):
+        loss, new_hist, metrics = total_loss(
+            outputs, batch["mask"], gt_entire, batch["code"],
+            state.histogram, loss_cfg, binary_loss_weight, state.world)
+    with span("zebrapose.train.backward"):
+        loss.backward()
     state.histogram = new_hist
     return {k: v.detach() for k, v in metrics.items()}
 
@@ -95,20 +99,23 @@ def accum_train_step(state: TrainState,
                      ) -> Dict[str, torch.Tensor]:
     """One optimizer step over k micro-batches; metrics are their mean,
     `grad_norm` is the norm of the applied mean gradient."""
-    state.optimizer.zero_grad(set_to_none=True)
-    msum, n = None, 0
-    for batch in micro_batches:
-        m = grad_step(state, batch, loss_cfg, binary_loss_weight,
-                      predict_entire_mask, bf16)
-        msum = m if msum is None else {k: msum[k] + m[k] for k in m}
-        n += 1
-    if n == 0:
-        raise ValueError("accum_train_step needs at least one micro-batch")
-    metrics = {k: v / n for k, v in msum.items()}
-    if state.world is not None:
-        metrics = mean_over_world(metrics, state.world)
-    metrics["grad_norm"] = apply_accumulated(state, n)
-    return metrics
+    with span("zebrapose.train.step"):
+        state.optimizer.zero_grad(set_to_none=True)
+        msum, n = None, 0
+        for batch in micro_batches:
+            m = grad_step(state, batch, loss_cfg, binary_loss_weight,
+                          predict_entire_mask, bf16)
+            msum = m if msum is None else {k: msum[k] + m[k] for k in m}
+            n += 1
+        if n == 0:
+            raise ValueError(
+                "accum_train_step needs at least one micro-batch")
+        metrics = {k: v / n for k, v in msum.items()}
+        if state.world is not None:
+            metrics = mean_over_world(metrics, state.world)
+        with span("zebrapose.train.optimizer"):
+            metrics["grad_norm"] = apply_accumulated(state, n)
+        return metrics
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],

@@ -73,7 +73,7 @@ from zebrapose_tpu_torch.train.train_step import (
     train_step,
 )
 from zebrapose_tpu_torch.utils.logging import MetricsLogger, NullLogger
-from zebrapose_tpu_torch.utils.profiling import count_flops
+from zebrapose_tpu_torch.utils.profiling import count_flops, span
 
 @dataclasses.dataclass
 class TrainResources:
@@ -148,10 +148,8 @@ def _make_batch_fn(res: TrainResources,
               use_motion_blur=cfg.use_motion_blur)
 
     def _next_batch(aug_index: int) -> Dict[str, torch.Tensor]:
-        t0 = time.perf_counter()
-        raw = next(res.train_iter)
-        if clock is not None:
-            clock["wait_s"] += time.perf_counter() - t0
+        with span("zebrapose.run.wait_s", clock):
+            raw = next(res.train_iter)
         gen = aug_generator(aug_index, res.device, res.world.rank)
         if res.device_cache is not None:
             return gather_preprocess_batch(
@@ -219,33 +217,25 @@ def timed_steps(res: TrainResources, n_steps: int = 500, warm: int = 20,
     """Sustained optimizer rate: `warm` unmeasured steps, then `n_steps`
     timed steps; returns ms a step on the host clock, from a drained
     device to the last step's loss read back. `timing`, when given,
-    gets host_ms, wait_s (waiting for batches in the timed steps) and on
-    CUDA event_ms (CUDA events around the timed steps). Neither saves
-    checkpoints nor closes res.train_iter; res.state advances."""
+    gets host_ms and wait_s (waiting for batches in the timed steps).
+    Neither saves checkpoints nor closes res.train_iter; res.state
+    advances."""
     loss_cfg = _loss_cfg(res.cfg)
-    clock = {"wait_s": 0.0}
+    clock = {"wait_s": 0.0, "host_s": 0.0}
     next_batch = _make_batch_fn(res, clock)
     dev = res.device
     for it in range(warm):
         _one_step(res, next_batch, it, loss_cfg)
     clock["wait_s"] = 0.0
-    events = None
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-        events = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        events[0].record()
-    t0 = time.perf_counter()
-    for it in range(warm, warm + n_steps):
-        metrics = _one_step(res, next_batch, it, loss_cfg)
-    if events is not None:
-        events[1].record()
-    float(metrics["loss_total"])
-    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    with span("zebrapose.run.host_s", clock):
+        for it in range(warm, warm + n_steps):
+            metrics = _one_step(res, next_batch, it, loss_cfg)
+        float(metrics["loss_total"])
+    ms = clock["host_s"] / n_steps * 1e3
     if timing is not None:
         timing.update(host_ms=ms, wait_s=clock["wait_s"])
-        if events is not None:
-            timing["event_ms"] = events[0].elapsed_time(events[1]) / n_steps
     return ms
 
 
@@ -332,50 +322,47 @@ def fit(res: TrainResources, log_freq: int = 1000, validate: bool = True,
 
     try:
         for it in range(start_step, end_step):
-            t0 = time.perf_counter()
             waited = clock["wait_s"]
-            metrics = _one_step(res, next_batch, it, loss_cfg)
+            with span("zebrapose.run.step_s", clock):
+                metrics = _one_step(res, next_batch, it, loss_cfg)
+            clock["step_s"] -= clock["wait_s"] - waited
             step_losses.append(metrics["loss_total"])
-            clock["step_s"] += time.perf_counter() - t0 - (
-                clock["wait_s"] - waited)
 
             if (it + 1) % log_freq == 0 or it + 1 == end_step:
-                t0 = time.perf_counter()
-                scalars = {k: float(v) for k, v in metrics.items()}
-                hist = state.histogram.cpu().numpy()
-                scalars.update({f"bit_err_{i}": float(h)
-                                for i, h in enumerate(hist)})
-                res.logger.log(it + 1, scalars, prefix="train/")
-                res.logger.log_series(
-                    "train/step_loss_total",
-                    range(it + 2 - len(step_losses), it + 2),
-                    torch.stack(step_losses).cpu().tolist())
-                step_losses = []
-                res.ckpt.save(state)
-                clock["log_s"] += time.perf_counter() - t0
+                with span("zebrapose.run.log_s", clock):
+                    scalars = {k: float(v) for k, v in metrics.items()}
+                    hist = state.histogram.cpu().numpy()
+                    scalars.update({f"bit_err_{i}": float(h)
+                                    for i, h in enumerate(hist)})
+                    res.logger.log(it + 1, scalars, prefix="train/")
+                    res.logger.log_series(
+                        "train/step_loss_total",
+                        range(it + 2 - len(step_losses), it + 2),
+                        torch.stack(step_losses).cpu().tolist())
+                    step_losses = []
+                    res.ckpt.save(state)
 
-                t0 = time.perf_counter()
-                if pose_val:
-                    recall = None
-                    if eval_step is not None:
-                        r = evaluate_object(
-                            res.val_dataset, eval_step, res.vertices,
-                            res.diameter, res.symmetric, res.obj_id, "val",
-                            res.obj_name, batch_size=res.val_batch_size,
-                            device=dev)
-                        prefix = "ADD-S" if res.symmetric else "ADD"
-                        recall = r.metrics[f"{prefix}_recall_0.1d"]
-                        res.logger.log(it + 1, r.metrics, prefix="val/")
-                    recall = broadcast_object(recall, world)
-                    if recall > best:
-                        best = recall
-                        state.best_score = best
-                        res.ckpt.save_best(state, best)
-                elif (validate and val_mode == "loss"
-                        and res.val_dataset is not None):
-                    res.logger.log(it + 1, _validate_loss_only(
-                        res, state, loss_cfg), prefix="val/")
-                clock["val_s"] += time.perf_counter() - t0
+                with span("zebrapose.run.val_s", clock):
+                    if pose_val:
+                        recall = None
+                        if eval_step is not None:
+                            r = evaluate_object(
+                                res.val_dataset, eval_step, res.vertices,
+                                res.diameter, res.symmetric, res.obj_id, "val",
+                                res.obj_name, batch_size=res.val_batch_size,
+                                device=dev)
+                            prefix = "ADD-S" if res.symmetric else "ADD"
+                            recall = r.metrics[f"{prefix}_recall_0.1d"]
+                            res.logger.log(it + 1, r.metrics, prefix="val/")
+                        recall = broadcast_object(recall, world)
+                        if recall > best:
+                            best = recall
+                            state.best_score = best
+                            res.ckpt.save_best(state, best)
+                    elif (validate and val_mode == "loss"
+                            and res.val_dataset is not None):
+                        res.logger.log(it + 1, _validate_loss_only(
+                            res, state, loss_cfg), prefix="val/")
     finally:
         res.train_iter.close()
         res.ckpt.wait()   # the writes in flight reach the disk

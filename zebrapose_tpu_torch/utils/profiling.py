@@ -1,5 +1,5 @@
-"""The `--profile` hook (a torch.profiler trace of a region) and the
-model's parameter and FLOP count.
+"""The `--profile` hook (a torch.profiler trace of a region), the
+program's named spans, and the model's parameter and FLOP count.
 
 Port of `zebrapose_tpu/utils/profiling.py` (`profile_trace`,
 `model_cost`). Where the JAX package writes a JAX profiler trace, this
@@ -7,15 +7,65 @@ writes a Chrome trace (`trace.json`, viewable in Perfetto or
 chrome://tracing) of the host and, on a CUDA device, of its kernels.
 Where it reads FLOPs off XLA's cost analysis, this counts them with
 `torch.utils.flop_counter` (`count_flops`).
+
+`span(name)` marks a stage of the serving and training steps
+(`zebrapose.serve.*`, `zebrapose.train.*`), of the pose decode that
+they and the fleet share (`zebrapose.decode.*`) and of the run loops
+(`zebrapose.run.*`). While a torch profiler records, the stage is a
+`record_function` range on the profiler's clock (in `--profile`'s
+`trace.json`, and an NVTX range under
+`torch.autograd.profiler.emit_nvtx()`), and its host interval is kept
+for `spans()`. Otherwise a span costs one check of the profiler's state.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
-from typing import Optional
+import threading
+import time
+from typing import Deque, Dict, List, Optional, Tuple
 
 import torch
+from torch.autograd import _profiler_enabled
+
+# (name, thread id, start ns, end ns) of the spans closed while a
+# profiler recorded, on time.perf_counter_ns's clock; the oldest drop
+# out past maxlen
+_SPANS: Deque[Tuple[str, int, int, int]] = collections.deque(maxlen=65536)
+
+
+@contextlib.contextmanager
+def span(name: str, clock: Optional[Dict[str, float]] = None):
+    """A named stage. While a torch profiler records, a
+    `record_function(name)` range whose host interval is kept for
+    `spans()`; otherwise nothing. With `clock`, the stage's host seconds
+    are added, either way, to `clock` under the name's last part
+    (`zebrapose.run.wait_s` adds to `clock["wait_s"]`)."""
+    recording = _profiler_enabled()
+    if not recording and clock is None:
+        yield
+        return
+    t0 = time.perf_counter_ns()
+    with (torch.autograd.profiler.record_function(name) if recording
+          else contextlib.nullcontext()):
+        yield
+    t1 = time.perf_counter_ns()
+    if recording:
+        _SPANS.append((name, threading.get_ident(), t0, t1))
+    if clock is not None:
+        clock[name.rsplit(".", 1)[1]] += (t1 - t0) / 1e9
+
+
+def spans() -> List[Tuple[str, int, int, int]]:
+    """The spans recorded while a profiler recorded, oldest first:
+    (name, thread id, start ns, end ns)."""
+    return list(_SPANS)
+
+
+def clear_spans() -> None:
+    _SPANS.clear()
 
 
 @contextlib.contextmanager
