@@ -46,6 +46,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from benchmark import harness
 from benchmark.reference import binarize as ref_binarize
 from benchmark.reference import crop as ref_crop
 from benchmark.reference import pnp as ref_pnp
@@ -355,13 +356,12 @@ def reference_steps(cfg: dict, tr: dict, seed: int, split, init: dict,
     from benchmark.reference.adam import Adam
     from benchmark.reference.fp8 import fp8_convs
     from benchmark.reference.train_draws import BatchDraws
-    from benchmark.reference.zebra_net import from_config
 
     net, s, t = cfg["network"], cfg["shapes"], cfg["train"]
     B = int(tr["batch"])
     draws = BatchDraws(split.bboxes, B, torch_seed(seed, 23),
                        torch_seed(seed, 22), s["padding_ratio"])
-    model = from_config(net)
+    model = harness.reference_network(cfg)
     model.load_state_dict(init)
     model = model.to(device).train()
     if fp8:

@@ -297,9 +297,8 @@ def reference_side(cfg: dict, device) -> checks.ServeReference:
     (float32, or the int8 arithmetic for an int8 configuration) and its
     own reading of the LUT."""
     from benchmark.reference.io import checkpoint_state_dict, load_lut
-    from benchmark.reference.zebra_net import from_config
 
-    m = from_config(cfg["network"], quant=bool(cfg.get("int8", False)))
+    m = harness.reference_network(cfg, quant=bool(cfg.get("int8", False)))
     m.load_state_dict(checkpoint_state_dict(
         str(harness.ROOT / cfg["checkpoint"])), strict=True)
     pts, valid = load_lut(str(harness.ROOT / cfg["lut"]))

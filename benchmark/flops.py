@@ -3,9 +3,9 @@ a later change to the program does not change what a roofline or an mfu
 counts.
 
   * conv FLOPs from shapes: each convolution of the network (the
-    reference's v2 model traced on the meta device) at 2 a multiply-add
-    over every tap, padded ones included, as
-    `torch.utils.flop_counter` counts them (the port's
+    reference network of the configuration's family, traced on the
+    meta device) at 2 a multiply-add over every tap, padded ones
+    included, as `torch.utils.flop_counter` counts them (the port's
     `utils/profiling.py::model_cost`; a CPU test ties the two);
   * `epnp_operations`: one minimal-set EPnP solve as the port's kernel
     runs it, copied from `chip_smoke.py:510-527`;
@@ -22,7 +22,7 @@ from typing import Dict, List
 
 import torch
 
-from benchmark.reference.zebra_net import from_config
+from benchmark import harness
 from benchmark.reference.layers import TorchConv
 
 
@@ -30,11 +30,10 @@ def conv_layers(config: dict, batch: int) -> List[Dict]:
     """Every convolution of one forward of the configuration's network
     at `batch` crops: shapes, whether it is transposed, and whether the
     configuration quantizes it."""
-    net = config["network"]
     crop = int(config["shapes"]["crop_img"])
     int8 = bool(config.get("int8", False))
     with torch.device("meta"):
-        model = from_config(net).eval()
+        model = harness.reference_network(config).eval()
         x = torch.empty((batch, crop, crop, 3))
     layers: List[Dict] = []
 

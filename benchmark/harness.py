@@ -9,6 +9,9 @@ per-layer metric lives in a file of its own, found by the name that
   traffic/<traffic>.json       the mix; its "driver" names
   drivers/<driver>.py          the general generator and loop for it
   metrics/<metric>.py          a per-layer metric's reader, read(run)
+  reference/nets/<variant>_r<resnet_layers>_base<base>.py
+                               the reference network of a configuration's
+                               family, build(net, quant=False)
 """
 
 from __future__ import annotations
@@ -69,14 +72,27 @@ def load_json(path: Path) -> dict:
 
 
 def load_module(path: Path, name: str):
-    """A harness file (driver or metric reader) as a module, by path:
-    its name may hold dots."""
+    """A harness file (driver, metric reader or reference network) as a
+    module, by path: its name may hold dots."""
     if not path.is_file():
         raise BenchError(f"missing {path}")
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reference_network(config: dict, quant: bool = False,
+                      bench: Path = BENCH):
+    """The plain reference's network of the configuration's family
+    (`network`: variant, resnet_layers, base), built by the family's
+    file: NHWC input, a dict of NHWC logits. `quant`: the convs' int8
+    serving arithmetic."""
+    net = config["network"]
+    family = f"{net['variant']}_r{net['resnet_layers']}_base{net['base']}"
+    mod = load_module(bench / "reference" / "nets" / f"{family}.py",
+                      f"bench_net_{family}")
+    return mod.build(net, quant=quant)
 
 
 class Cell:

@@ -1,7 +1,7 @@
 """ZebraPoseNet v2 on ResNet34: the ResNet-OS8 backbone, the ASPP
 decoder and the head split; a frozen copy of the port's
-`models/zebra_net.py` for the one family the benchmark's
-configurations run (the fork's trained model, base 2).
+`models/zebra_net.py` for the family v2 on ResNet34, base 2 (the fork's
+trained model), which `nets/v2_r34_base2.py` builds.
 
 The public layout is the port's: NHWC input, NHWC logits in a dict
 ("mask", "entire_mask", "code"). Inside, the network runs NCHW. Module
@@ -51,19 +51,6 @@ class ZebraPoseNet(nn.Module):
         out = self.net(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return {"mask": out[..., :1], "entire_mask": out[..., 1:2],
                 "code": out[..., 2:]}
-
-
-def from_config(net: dict, quant: bool = False) -> ZebraPoseNet:
-    """The network of a configuration's `network` group; a family the
-    reference does not hold is refused."""
-    family = (net["variant"], net["resnet_layers"], net["base"])
-    if family != ("v2", 34, 2):
-        raise NotImplementedError(
-            f"the reference holds v2 on ResNet34 with base 2, not {family}")
-    return ZebraPoseNet(binary_code_length=net["code_bits"],
-                        concat=net["concat_encoder_decoder"],
-                        output_kernel_size=net["output_kernel_size"],
-                        quant=quant)
 
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)

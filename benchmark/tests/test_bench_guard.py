@@ -47,8 +47,14 @@ def test_no_jax_anywhere(path):
     "path", [p for p in SOURCES if "reference" in p.parts],
     ids=lambda p: p.name)
 def test_reference_imports_nothing_of_the_port(path):
-    tops = {m.split(".")[0] for m in _imports(path)}
-    assert not tops & {"zebrapose_tpu_torch", "benchmark", "zebrapose_tpu"}
+    mods = list(_imports(path))
+    assert not {m.split(".")[0] for m in mods} & {"zebrapose_tpu_torch",
+                                                  "zebrapose_tpu"}
+    # a family's file under nets/ is loaded by path and so imports the
+    # reference by absolute names: the reference, and nothing else of
+    # the benchmark
+    assert all(m.startswith("benchmark.reference.")
+               for m in mods if m.split(".")[0] == "benchmark")
 
 
 def _run(args, cwd, env=None):

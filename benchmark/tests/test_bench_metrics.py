@@ -103,6 +103,19 @@ def test_conv_flops_equal_the_ports_model_cost():
         model_cost(model, x)["flops"]
 
 
+@pytest.mark.parametrize("config,quantized", [
+    ("zebrapose-v2-r34", 0), ("zebrapose-v2-r34-int8", 37)])
+def test_conv_layers_of_each_configuration_are_pinned(config, quantized):
+    # the denominators of both mfu metrics and of the int8 rooflines:
+    # how the reference network is found and built may not move them
+    cfg = harness.load_json(harness.BENCH / "configs" / f"{config}.json")
+    layers = flops.conv_layers(cfg, 256)
+    assert len(layers) == 49
+    assert sum(c["transposed"] for c in layers) == 2
+    assert flops.forward_flops(layers) == 27941513723904
+    assert sum(c["quantized"] for c in layers) == quantized
+
+
 def test_frozen_counts_equal_their_sources():
     import chip_smoke
 

@@ -12,14 +12,15 @@ from benchmark import harness
 
 def _nets(quant=False):
     from benchmark.reference.io import checkpoint_state_dict
-    from benchmark.reference.zebra_net import ZebraPoseNet as RefNet
     from zebrapose_tpu_torch.eval.runner import load_model_variables
     from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
 
-    ckpt = str(harness.ROOT / "trained" / "rehearsal3_best.npz")
+    cfg = harness.load_json(harness.BENCH / "configs" /
+                            "zebrapose-v2-r34.json")
+    ckpt = str(harness.ROOT / cfg["checkpoint"])
     port = ZebraPoseNet(16, 2, "v2", quant=quant)
     port.load_state_dict(load_model_variables(ckpt, "v2"), strict=True)
-    ref = RefNet(16, quant=quant)
+    ref = harness.reference_network(cfg, quant=quant)
     ref.load_state_dict(checkpoint_state_dict(ckpt), strict=True)
     return port.eval(), ref.eval()
 
