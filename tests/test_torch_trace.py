@@ -185,3 +185,71 @@ def test_span_adds_to_a_clock_without_a_profiler():
         pass
     assert clock["wait_s"] > 0 and profiling.spans() == []
 
+
+MODEL_SPANS = ["model.backbone", "model.decoder"]
+
+
+def _model(variant):
+    from zebrapose_tpu_torch.models.zebra_net import ZebraPoseNet
+
+    torch.manual_seed(3)
+    return ZebraPoseNet(binary_code_length=BITS, variant=variant).eval()
+
+
+@pytest.mark.parametrize("variant", ["v2", "v3"])
+def test_model_forward_records_backbone_then_decoder(recording, variant):
+    """One forward (v3: both decoders under one span) records the
+    backbone's span and then the decoder's, once each, the second
+    starting after the first ended."""
+    with torch.no_grad():
+        out = _model(variant)(torch.randn(2, 64, 64, 3))
+    assert out["code"].shape == (2, 32, 32, BITS)
+    spans = sorted(_names("zebrapose."), key=lambda s: s[1])
+    assert [n for n, _, _ in spans] == MODEL_SPANS
+    (_, _, b1), (_, d0, _) = spans
+    assert b1 <= d0
+
+
+def test_model_forward_records_nothing_without_a_profiler():
+    profiling.clear_spans()
+    assert not torch.autograd._profiler_enabled()
+    with torch.no_grad():
+        _model("v2")(torch.randn(1, 64, 64, 3))
+    assert profiling.spans() == []
+
+
+@pytest.mark.parametrize("records", [False, True])
+def test_fleet_vmapped_forward_runs_with_the_spans(monkeypatch, records):
+    """The fleet's vmapped forward (`eval/fleet_serve.py`) runs through
+    the model's spans with and without a recording profiler, gives each
+    member's own forward, and records the spans once for the K members."""
+    from zebrapose_tpu_torch.eval import fleet_serve as tfs
+
+    profiling.clear_spans()
+    monkeypatch.setattr(profiling, "_profiler_enabled", lambda: records)
+    nets = [_model("v2") for _ in range(2)]
+    for k, net in enumerate(nets):
+        torch.manual_seed(10 + k)
+        for p in net.parameters():
+            p.data.normal_(0.0, 0.05)
+    with torch.device("meta"):
+        template = _model("v2")
+    keep = [n for n, _ in template.named_parameters()] + \
+        [n for n, _ in template.named_buffers()]
+    variables = tfs.stack_variables(
+        [{n: v for n, v in net.state_dict().items() if n in keep}
+         for net in nets], "cpu")
+    x = torch.randn(2, 2, 64, 64, 3, generator=torch.Generator()
+                    .manual_seed(4))
+    with torch.no_grad():
+        got = torch.func.vmap(tfs.model_forward(template))({"image": x},
+                                                           variables)
+    assert [n for n, _, _ in _names("zebrapose.")] == \
+        (MODEL_SPANS if records else [])
+    monkeypatch.setattr(profiling, "_profiler_enabled", lambda: False)
+    with torch.no_grad():
+        for k, net in enumerate(nets):
+            for name, v in net(x[k]).items():
+                torch.testing.assert_close(got[name][k], v, atol=2e-4,
+                                           rtol=0)
+    profiling.clear_spans()

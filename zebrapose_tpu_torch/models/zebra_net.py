@@ -19,6 +19,10 @@ which cuDNN takes as is when the weights are channels-last too. Module
 names follow the reference checkpoints (`net.resnet...`, `net.aspp...`,
 `net.aspp_v3...`), so `models/convert.py::variables_to_state_dict`
 output loads strictly.
+
+The forward's two parts are the spans `zebrapose.model.backbone` and
+`zebrapose.model.decoder` (both decoders of v3): ranges in a profiler's
+trace while one records, one check otherwise (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from torch import nn
 
 from zebrapose_tpu_torch.models.aspp import ASPP, ASPPNonBinary, ASPPv3
 from zebrapose_tpu_torch.models.resnet import ResNet34OS8, ResNet50OS8
+from zebrapose_tpu_torch.utils.profiling import span
 
 _HEADS = {"v1": 1, "v2": 2, "v3": 1}
 
@@ -59,11 +64,13 @@ class _Net(nn.Module):
                                   quant=quant)
 
     def forward(self, x):
-        x_high, x_128, x_64, _, _ = self.resnet(x)
-        out = self.aspp(x_high, x_128, x_64)
-        if self.variant != "v3" or self.base != 2:
-            return out
-        return out, self.aspp_v3(out[:, :1], x_high, x_128, x_64)
+        with span("zebrapose.model.backbone"):
+            x_high, x_128, x_64, _, _ = self.resnet(x)
+        with span("zebrapose.model.decoder"):
+            out = self.aspp(x_high, x_128, x_64)
+            if self.variant != "v3" or self.base != 2:
+                return out
+            return out, self.aspp_v3(out[:, :1], x_high, x_128, x_64)
 
 
 class ZebraPoseNet(nn.Module):
